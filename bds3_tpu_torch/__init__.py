@@ -1,0 +1,20 @@
+"""bds3_tpu_torch — the BDS-3 receiver on PyTorch, with hand-written CUDA
+kernels for NVIDIA Hopper (sm_90a).
+
+A port of `bds3_tpu` (JAX/XLA/Pallas), which stays beside it as the
+reference the port is tested against.  The modules mirror the reference's
+layout: `acquire.pcps`, `track.{state,scan,fused,driver}`, `utils.phase`,
+`receiver` and `__main__`.  Host-only parts that import no JAX (settings,
+signals, synthesis, navigation decoding, PVT) are used from `bds3_tpu`
+directly.
+
+Ported so far: B2a, data-only or data+pilot tracking, real int8
+captures.  Every public entry point takes an explicit `device`; on a CUDA
+device the tracking epochs run in `csrc/track_fused.cu`, on the CPU in
+its plain PyTorch version (`track.scan.track_block_reference`).
+
+Importing this package, or any module of it, imports neither JAX nor
+Triton and builds nothing: the CUDA library is compiled at first use
+(`_build.py`).
+"""
+__version__ = "0.1.0"

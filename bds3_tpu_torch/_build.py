@@ -1,0 +1,74 @@
+"""Builds the port's CUDA sources into one shared library at first use.
+
+`nvcc` compiles every `csrc/*.cu` for sm_90a (Hopper) into
+`_build/libbds3_tpu_torch_<hash>.so`, keyed by a hash of the sources and
+the flags, and the library is loaded with ctypes: each kernel has a plain
+C entry point that takes pointers, sizes and a stream and returns
+`cudaGetLastError()`.  No PyTorch header is compiled, which keeps a build
+to seconds.  The compiler's output (ptxas register and shared-memory
+counts) is kept beside the library as `<name>.log`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # round every a*b+c as written, as PyTorch's separate operations do:
+    # the kernels must take the same ceil() branches as their plain
+    # versions (see csrc/track_fused.cu, "Exactness")
+    "-fmad=false",
+    "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    """nvcc from PATH, else from $CUDA_HOME, $CUDA_PATH or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libbds3_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded library, compiled first if this source hash is new."""
+    so = library_path()
+    if not so.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               *map(str, sorted(CSRC.glob("*.cu")))]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        so.with_suffix(".log").write_text(
+            f"{' '.join(cmd)}\nbuilt in {time.perf_counter() - t0:.3f} s\n"
+            f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))

@@ -1,0 +1,164 @@
+"""Top-level receiver pipeline: acquisition -> tracking -> nav decode ->
+PVT, on a PyTorch device.
+
+Port of `bds3_tpu/receiver.py`.  The capture goes to `device` once, as
+int8, before acquisition; acquisition and tracking both read it there.
+C/N0 and lock health, navigation decoding and PVT run on the host, from
+`bds3_tpu` itself.
+"""
+from __future__ import annotations
+
+import dataclasses
+import pickle
+import time
+
+import numpy as np
+import torch
+
+from bds3_tpu.config import FileType, Settings
+from bds3_tpu.io.ifdata import IFDataFile
+from bds3_tpu.observe.cn0 import channel_health
+from bds3_tpu.pvt.solver import NavSolutions, post_navigation
+from bds3_tpu_torch.acquire.pcps import AcqResults, acquire, make_acq_config
+from bds3_tpu_torch.track.driver import (
+    TrackResults,
+    as_capture,
+    require_ported,
+    track,
+)
+from bds3_tpu_torch.track.state import ChannelInit, assign_channels
+
+
+@dataclasses.dataclass
+class ReceiverResults:
+    settings: Settings
+    acq: AcqResults
+    channels: list[ChannelInit]
+    track: TrackResults | None
+    nav: NavSolutions | None
+    timings: dict
+    # per-channel C/N0 + PLL-lock summary (observe.cn0.channel_health)
+    health: list[dict] = dataclasses.field(default_factory=list)
+
+
+def acquisition_signal_length(s: Settings) -> int:
+    """Samples needed by the acquisition stage (coarse FFT window + fine
+    window, cf. postProcessing.m acq reads)."""
+    if s.resampling and s.sampling_freq > s.resampling_threshold:
+        raise NotImplementedError(
+            "acquisition with bandpass resampling is not ported yet")
+    cfg = make_acq_config(s)
+    return cfg.n_fft + max(cfg.fine_noncoh, 1) * cfg.samples_per_code \
+        + cfg.samples_per_code
+
+
+def _channel_table(channels) -> str:
+    lines = ["Ch | PRN |  Acquired freq [Hz] | Metric",
+             "---+-----+---------------------+-------"]
+    for ch, c in enumerate(channels):
+        lines.append(f"{ch:2d} | {c.prn:3d} | {c.acquired_freq:19.1f} | "
+                     f"{c.peak_metric:6.2f}")
+    return "\n".join(lines)
+
+
+def run_receiver(
+    signal,
+    settings: Settings,
+    n_epochs: int | None = None,
+    epochs_per_block: int = 200,
+    checkpoint_path: str | None = None,
+    prns=None,
+    acq_results: AcqResults | None = None,
+    verbose: bool = True,
+    device: str | torch.device = "cuda",
+) -> ReceiverResults:
+    """Full cold-start pipeline on a real int8 IF capture, on `device`.
+
+    signal: numpy array, tensor or IFDataFile.  Pass `acq_results` to
+    reuse a previous acquisition (the reference's
+    settings.skipAcquisition workflow, postProcessing.m:81-85).
+    Configurations the port does not cover yet raise NotImplementedError
+    before any work is done.
+    """
+    require_ported(settings)
+    if isinstance(signal, IFDataFile):
+        if signal.file_type == FileType.IQ8:
+            raise NotImplementedError("complex IQ captures are not ported yet")
+        signal = signal.data
+
+    timings = {}
+    t0 = time.time()
+    capture = as_capture(signal, device)
+    dev = capture.device
+    timings["upload_s"] = time.time() - t0
+
+    t0 = time.time()
+    if acq_results is not None:
+        acq = acq_results
+    else:
+        acq = acquire(capture[: acquisition_signal_length(settings)],
+                      settings, prns, device=dev)
+    timings["acquire_s"] = time.time() - t0
+    if verbose:
+        det = ", ".join(
+            f"{p}({m:.1f})" for p, m in
+            zip(acq.prns[acq.detected], acq.peak_metric[acq.detected])
+        )
+        print(f"[acquire] {timings['acquire_s']:.2f}s detected: ({det})")
+
+    channels = assign_channels(acq, settings)
+    if not channels:
+        return ReceiverResults(settings, acq, [], None, None, timings)
+    if verbose:
+        print(_channel_table(channels))
+
+    if n_epochs is None:
+        n_epochs = settings.int_epochs
+    t0 = time.time()
+    trk = track(capture, settings, channels, n_epochs=n_epochs,
+                epochs_per_block=min(epochs_per_block, n_epochs), device=dev)
+    timings["track_s"] = time.time() - t0
+    ms_tracked = trk.n_epochs * settings.int_time * 1e3
+    timings["track_realtime_factor"] = ms_tracked / 1e3 / timings["track_s"]
+    if verbose:
+        print(f"[track] {timings['track_s']:.2f}s for {ms_tracked:.0f} ms x "
+              f"{len(channels)} channels "
+              f"({timings['track_realtime_factor']:.2f}x realtime, "
+              f"{trk.correlator} on {dev})")
+
+    health = channel_health(trk)
+    if verbose:
+        for h in health:
+            flag = "" if h["lock_ok"] else "  ** LOW LOCK **"
+            print(f"[health] PRN {h['prn']:2d}: C/N0 {h['cn0_db']:5.1f} dB-Hz"
+                  f"  PLL lock {h['pll_lock']:+.2f}{flag}")
+
+    if checkpoint_path:
+        # checkpoint between tracking and PVT (postProcessing.m:133-135)
+        with open(checkpoint_path, "wb") as f:
+            pickle.dump({"settings": settings, "acq": acq,
+                         "channels": channels, "track": trk}, f)
+
+    t0 = time.time()
+    nav = post_navigation(trk, settings)
+    timings["pvt_s"] = time.time() - t0
+    if verbose:
+        if nav is None:
+            print("[pvt] no solution (insufficient decoded satellites)")
+        else:
+            ok = np.isfinite(nav.x)
+            print(f"[pvt] {ok.sum()}/{len(nav.x)} fixes in "
+                  f"{timings['pvt_s']:.2f}s")
+    return ReceiverResults(settings, acq, channels, trk, nav, timings,
+                           health=health)
+
+
+def resume_from_checkpoint(path: str) -> ReceiverResults:
+    """Re-run PVT from a tracking checkpoint this module wrote (the
+    reference's trackingResults.mat workflow).  Unpickles: read only
+    checkpoints you wrote."""
+    with open(path, "rb") as f:
+        st = pickle.load(f)
+    nav = post_navigation(st["track"], st["settings"])
+    return ReceiverResults(st["settings"], st["acq"], st["channels"],
+                           st["track"], nav, {})

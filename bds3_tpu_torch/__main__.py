@@ -3,8 +3,10 @@
     python -m bds3_tpu_torch --signal b2a --file BDS_B2a_IF_signal.bin \
         --device cuda
 
-The same options as `python -m bds3_tpu`, plus --device.  B1C, --resample
-and --transport are not ported yet and exit with an error.
+The same options as `python -m bds3_tpu`, plus --device.  What the port
+does not cover yet (B1C wideband, --resample where it applies, i.e. above
+the resampling threshold, and --transport) exits with an error before
+the file is opened.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import numpy as np
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="bds3_tpu_torch",
-        description="BDS-3 B2a receiver on PyTorch (CUDA kernels on Hopper)")
+        description="BDS-3 B1C/B2a receiver on PyTorch "
+                    "(CUDA kernels on Hopper)")
     p.add_argument("--signal", choices=("b1c", "b2a"), required=True)
     p.add_argument("--file", required=True, help="IF capture path")
     p.add_argument("--file-type", type=int, default=1,
@@ -35,7 +38,8 @@ def main(argv=None):
     p.add_argument("--checkpoint", help="write tracking checkpoint here")
     p.add_argument("--resume", help="resume PVT from a tracking checkpoint")
     p.add_argument("--resample", action="store_true",
-                   help="bandpass-decimate before acquisition (not ported)")
+                   help="bandpass-decimate before acquisition (not ported: "
+                        "exits where it applies)")
     p.add_argument("--wb-code-blend",
                    choices=("composite", "nb", "split", "dotprod"),
                    help="B1C wideband code-DLL blend (see Settings)")
@@ -51,17 +55,17 @@ def main(argv=None):
                    help="PyTorch device to run on: cuda, cuda:N or cpu")
     args = p.parse_args(argv)
 
-    from bds3_tpu.config import FileType, TrackMode, b2a_settings
+    from bds3_tpu.config import FileType, TrackMode, b1c_settings, b2a_settings
     from bds3_tpu.io.ifdata import IFDataFile, probe_stats
-    from bds3_tpu_torch.receiver import resume_from_checkpoint, run_receiver
+    from bds3_tpu_torch.receiver import (
+        check_ported,
+        resume_from_checkpoint,
+        run_receiver,
+    )
 
     if args.resume:
         _report(resume_from_checkpoint(args.resume))
         return 0
-    if args.signal == "b1c":
-        p.error("--signal b1c is not ported yet")
-    if args.resample:
-        p.error("--resample is not ported yet")
     if args.transport != "none":
         p.error("--transport is not ported yet")
 
@@ -81,13 +85,19 @@ def main(argv=None):
             int(x) for x in args.prns.split(","))
     if args.track_mode is not None:
         overrides["track_mode"] = TrackMode(args.track_mode)
+    if args.resample:
+        overrides["resampling"] = True
     if args.wb_code_blend:
         overrides["wb_code_blend"] = args.wb_code_blend
     if args.utm_datum:
         overrides["utm_datum"] = args.utm_datum
     if args.ldpc:
         overrides["ldpc_decode"] = True
-    s = b2a_settings(**overrides)
+    s = (b2a_settings if args.signal == "b2a" else b1c_settings)(**overrides)
+    try:
+        check_ported(s)
+    except NotImplementedError as e:
+        p.error(str(e))
 
     f = IFDataFile.open(args.file, s.file_type, s.skip_samples)
     if args.probe:

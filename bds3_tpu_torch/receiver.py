@@ -1,8 +1,10 @@
 """Top-level receiver pipeline: acquisition -> tracking -> nav decode ->
 PVT, on a PyTorch device.
 
-Port of `bds3_tpu/receiver.py`.  The capture goes to `device` once, as
-int8, before acquisition; acquisition and tracking both read it there.
+Port of `bds3_tpu/receiver.py`, for B2a and for B1C data-only and
+narrowband on real int8 captures without resampling.  The capture goes to
+`device` once, as int8, before acquisition; acquisition and tracking both
+read it there.
 C/N0 and lock health, navigation decoding and PVT run on the host, from
 `bds3_tpu` itself.
 """
@@ -41,6 +43,18 @@ class ReceiverResults:
     health: list[dict] = dataclasses.field(default_factory=list)
 
 
+def check_ported(s: Settings) -> None:
+    """NotImplementedError naming what the port does not cover yet in
+    these settings (tracking config, IQ captures, bandpass resampling),
+    before any file is opened or any device is touched."""
+    require_ported(s)
+    if s.file_type == FileType.IQ8:
+        raise NotImplementedError("complex IQ captures are not ported yet")
+    if s.resampling and s.sampling_freq > s.resampling_threshold:
+        raise NotImplementedError(
+            "acquisition with bandpass resampling is not ported yet")
+
+
 def acquisition_signal_length(s: Settings) -> int:
     """Samples needed by the acquisition stage (coarse FFT window + fine
     window, cf. postProcessing.m acq reads)."""
@@ -77,10 +91,11 @@ def run_receiver(
     signal: numpy array, tensor or IFDataFile.  Pass `acq_results` to
     reuse a previous acquisition (the reference's
     settings.skipAcquisition workflow, postProcessing.m:81-85).
-    Configurations the port does not cover yet raise NotImplementedError
-    before any work is done.
+    Tracking runs the path `track` chooses ("auto").  Configurations the
+    port does not cover yet raise NotImplementedError before any work is
+    done (check_ported).
     """
-    require_ported(settings)
+    check_ported(settings)
     if isinstance(signal, IFDataFile):
         if signal.file_type == FileType.IQ8:
             raise NotImplementedError("complex IQ captures are not ported yet")

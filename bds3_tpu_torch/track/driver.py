@@ -1,17 +1,19 @@
-"""Tracking driver: runs the tracking kernel block by block over a capture
-that lives on the device, and assembles the per-epoch results.
+"""Tracking driver: runs the chosen tracking path block by block over a
+capture that lives on the device, and assembles the per-epoch results.
 
 Port of `bds3_tpu/track/driver.py`.  The capture goes to the device once;
-each block of W epochs is one kernel launch that reads every channel's
-samples at its own absolute int64 cursor, so no block is sliced, padded
-or shifted (the reference's int32 block offsets and its 2^31-sample limit
-are TPU artifacts).  The block schedule is the reference's, verbatim, so
-the epoch count, `absolute_sample` and the derived frequencies match it.
+each block of W epochs is one call of the path's block function, which
+reads every channel's samples at its own absolute int64 cursor, so no
+block is sliced, padded or shifted (the reference's int32 block offsets
+and its 2^31-sample limit are TPU artifacts).  The block schedule is the
+reference's, verbatim, so the epoch count, `absolute_sample` and the
+derived frequencies match it.
 The outputs are downloaded once, at the end.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -20,14 +22,19 @@ from bds3_tpu.config import Settings, Signal
 from bds3_tpu.signals.b1c import b1c_data_boc11, b1c_pilot_boc11, b1c_pilot_boc61
 from bds3_tpu.signals.b2a import b2a_data_code, b2a_pilot_code
 from bds3_tpu_torch.convert import consts_to_torch, state_to_torch, tables_to_torch
-from bds3_tpu_torch.track.fused import KERNEL_NAME, fused_track_block
+from bds3_tpu_torch.track import fused, prefix
+from bds3_tpu_torch.track.fused import cuda_supported, fused_track_block
 from bds3_tpu_torch.track.scan import (
     CODE_PAD,
     TrackState,
     TrackTables,
+    bucket_prefix,
     describe,
     output_names,
+    pallas_prefix,
     reference_supported,
+    track_block_bucket,
+    track_block_reference,
 )
 from bds3_tpu_torch.track.state import (
     ChannelConsts,
@@ -129,6 +136,42 @@ class TrackSetup:
     n_blocks: int
 
 
+# correlator -> block function (the reference's names, driver.py:183-185)
+BLOCK_FNS = {
+    "fused": fused_track_block,
+    "gather": track_block_reference,
+    "bucket": functools.partial(track_block_bucket, prefix_fn=bucket_prefix),
+    "bucket_pallas": functools.partial(track_block_bucket,
+                                       prefix_fn=pallas_prefix),
+}
+
+
+def choose_correlator(cfg: TrackConfig, correlator: str = "auto") -> str:
+    """The tracking path for `cfg`: "auto" takes the CUDA tracking kernel
+    ("fused") where it takes the config, else the prefix-sum path with its
+    kernel ("bucket_pallas").  The device then picks kernel or plain
+    version, so the CPU runs the path the card runs."""
+    if correlator == "auto":
+        return "fused" if cuda_supported(cfg) else "bucket_pallas"
+    if correlator not in BLOCK_FNS:
+        raise ValueError(f"unknown correlator {correlator!r}: expected "
+                         f"'auto' or one of {sorted(BLOCK_FNS)}")
+    if correlator == "fused" and not cuda_supported(cfg):
+        raise NotImplementedError(
+            f"the CUDA tracking kernel does not take {describe(cfg)} yet")
+    return correlator
+
+
+def ran_name(correlator: str, on_card: bool) -> str:
+    """What TrackResults.correlator reports: the kernel's name where one
+    launched, else the plain path's ("reference" is the direct sum)."""
+    if on_card and correlator == "fused":
+        return fused.KERNEL_NAME
+    if on_card and correlator == "bucket_pallas":
+        return prefix.KERNEL_NAME
+    return "reference" if correlator in ("fused", "gather") else correlator
+
+
 def require_ported(settings: Settings,
                    epochs_per_block: int = 100) -> TrackConfig:
     """The real-input TrackConfig, or NotImplementedError naming a
@@ -185,7 +228,7 @@ def setup_tracking(capture: torch.Tensor, settings: Settings,
 
 
 def run_blocks(setup: TrackSetup, capture: torch.Tensor,
-               block_fn=fused_track_block) -> torch.Tensor:
+               block_fn) -> torch.Tensor:
     """All blocks, one `block_fn` call each; (n_blocks*W, C, slots) rows
     on the device, not synchronized."""
     state = setup.state
@@ -204,25 +247,32 @@ def track(
     n_epochs: int | None = None,
     epochs_per_block: int = 100,
     device: str | torch.device = "cuda",
+    correlator: str = "auto",
 ) -> TrackResults:
     """Track all channels for n_epochs integration periods on `device`.
 
     signal: the whole real int8 capture, numpy or a tensor (a tensor
-    already on `device` is not copied).  On a CUDA device every block is
-    one launch of the CUDA kernel; on the CPU the plain PyTorch version
-    runs instead.  Configurations other than B2a data-only/data+pilot on
-    real int8 input raise NotImplementedError.
+    already on `device` is not copied).  correlator: "auto"
+    (choose_correlator), or one of the reference's paths: "fused" and
+    "gather" (the CUDA tracking kernel and its plain version, the direct
+    sum), "bucket" and "bucket_pallas" (the prefix-sum correlator with its
+    plain prefixes or with the mix+prefix kernel).  On a CUDA device the
+    kernel paths launch their kernels; on the CPU their plain versions run
+    instead.  Configurations the port does not cover raise
+    NotImplementedError before any device work: B2a, and B1C data-only
+    and narrowband, on real int8 input are covered.
     """
-    require_ported(settings, epochs_per_block)
+    cfg = require_ported(settings, epochs_per_block)
+    correlator = choose_correlator(cfg, correlator)
     capture = as_capture(signal, device)
     if n_epochs is None:
         n_epochs = settings.int_epochs
     setup = setup_tracking(capture, settings, inits, n_epochs,
                            epochs_per_block)
-    rows = run_blocks(setup, capture)
-    on_card = capture.device.type == "cuda"
+    rows = run_blocks(setup, capture, BLOCK_FNS[correlator])
     return assemble_results(setup, rows, settings, n_epochs,
-                            KERNEL_NAME if on_card else "reference")
+                            ran_name(correlator,
+                                     capture.device.type == "cuda"))
 
 
 def assemble_results(setup: TrackSetup, rows: torch.Tensor,

@@ -13,6 +13,7 @@ import functools
 
 import torch
 
+from bds3_tpu.config import Signal
 from bds3_tpu_torch.track.scan import (
     CODE_PAD,
     STATE_FIELDS,
@@ -25,6 +26,7 @@ from bds3_tpu_torch.track.scan import (
     track_block_reference,
 )
 from bds3_tpu_torch.track.state import TrackConfig
+from bds3_tpu_torch.utils.device import check_tensor
 
 KERNEL_NAME = "track_fused_cuda"
 SOURCE = "bds3_tpu_torch/csrc/track_fused.cu"
@@ -66,9 +68,12 @@ def _smem_bytes(cfg: TrackConfig) -> int:
 
 def cuda_supported(cfg: TrackConfig) -> bool:
     """Whether the CUDA kernel takes this config (the port's counterpart of
-    `fused_supported`): B2a, data-only or data+pilot, real input, with the
-    code tables within one block's shared memory."""
-    return reference_supported(cfg) and _smem_bytes(cfg) <= SMEM_LIMIT
+    `fused_supported`): B2a in any track mode (data-only, or data+pilot),
+    real input, with the code tables within one block's shared memory.
+    The kernel computes the B2a discriminators only: B1C, which the plain
+    versions take, goes to the bucket path."""
+    return (cfg.signal == Signal.B2A and reference_supported(cfg)
+            and _smem_bytes(cfg) <= SMEM_LIMIT)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,18 +106,6 @@ def _entry():
     return fn
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
                       tables: TrackTables, consts, state: TrackState
                       ) -> tuple[TrackState, torch.Tensor]:
@@ -123,27 +116,31 @@ def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
     (W, C, len(slot_names(cfg))) float32), like track_block_reference.
     The launch is on the current stream and is not synchronized.
     """
+    if not cuda_supported(cfg):
+        raise NotImplementedError(
+            f"the CUDA tracking kernel does not take {describe(cfg)} yet")
     dev = capture.device
     if dev.type == "cpu":
         return track_block_reference(cfg, capture, tables, consts, state)
     if dev.type != "cuda":
         raise ValueError(f"no tracking kernel for device {dev}")
-    if not cuda_supported(cfg):
-        raise NotImplementedError(
-            f"the CUDA tracking kernel does not take {describe(cfg)} yet")
 
     C = state.cursor.shape[0]
     taps = 2 if cfg.use_pilot else 1
-    _check("capture", capture, torch.int8, (capture.shape[0],), dev)
-    _check("tables.code", tables.code, torch.int8,
-           (C, taps, _table_len(cfg)), dev)
-    _check("tables.ck_int", tables.ck_int, torch.int32, (cfg.k_max,), dev)
-    _check("tables.ck_frac", tables.ck_frac, torch.float32, (cfg.k_max,), dev)
-    _check("consts.carr_t", consts.carr_t, torch.float32, (C, cfg.k_max), dev)
+    check_tensor("capture", capture, torch.int8, (capture.shape[0],), dev)
+    check_tensor("tables.code", tables.code, torch.int8,
+                 (C, taps, _table_len(cfg)), dev)
+    check_tensor("tables.ck_int", tables.ck_int, torch.int32,
+                 (cfg.k_max,), dev)
+    check_tensor("tables.ck_frac", tables.ck_frac, torch.float32,
+                 (cfg.k_max,), dev)
+    check_tensor("consts.carr_t", consts.carr_t, torch.float32,
+                 (C, cfg.k_max), dev)
     for f in ("a_base", "q0_cyc", "init_dstep"):
-        _check(f"consts.{f}", getattr(consts, f), torch.float32, (C,), dev)
-    _check("state.cursor", state.cursor, torch.int64, (C,), dev)
-    _check("state.statef", state.statef, torch.float32, (C, 8), dev)
+        check_tensor(f"consts.{f}", getattr(consts, f), torch.float32,
+                     (C,), dev)
+    check_tensor("state.cursor", state.cursor, torch.int64, (C,), dev)
+    check_tensor("state.statef", state.statef, torch.float32, (C, 8), dev)
 
     params = _params(cfg, C)
     rows = torch.empty((cfg.epochs_per_block, C, params.n_slots),

@@ -1,28 +1,41 @@
-"""The tracking epochs in plain PyTorch: the reference the CUDA kernel is
-held to.
+"""The tracking epochs in plain PyTorch: the references the CUDA kernels
+are held to, and the prefix-sum ("bucket") correlator path.
 
-Port of `bds3_tpu/track/scan.py`.  `track_block_reference` runs W
-closed-loop epochs for all channels with the channels as a batch
-dimension and a Python loop over the epochs.  Each epoch computes the
-direct-sum ("gather") correlator of `scan.py:162-168`: every sample of
-the epoch is mixed with the local carrier and multiplied by the code chip
-it falls in, indexed as `_code_indices` (`scan.py:76-89`) does.  Then come
-the B2a discriminators (`scan.py:216-235`), the 3rd-order PLL and
+Port of `bds3_tpu/track/scan.py`.  Each block function runs W closed-loop
+epochs for all channels with the channels as a batch dimension and a
+Python loop over the epochs:
+
+* `track_block_reference` computes the direct-sum ("gather") correlator of
+  `scan.py:162-168`: every sample of the epoch is mixed with the local
+  carrier and multiplied by the code chip it falls in, indexed as
+  `_code_indices` (`scan.py:76-89`) does.  It is the plain version of
+  `csrc/track_fused.cu`.
+* `track_block_bucket` computes the same sums regrouped (`scan.py:170-196`):
+  exclusive prefix sums of the mixed samples, differenced at the sample
+  boundary of every chip, dotted with the chip table.  Its `prefix_fn`
+  makes the prefixes: `bucket_prefix` with the in-epoch mix and a cumsum
+  (the XLA path, `scan.py:137-160`), or `pallas_prefix` through
+  `prefix.mix_prefix`, the wrapper of `csrc/mix_prefix.cu` (the
+  `bucket_pallas` path, `scan.py:378-405`).
+
+Both end in `_finish_epoch`: the discriminators of B2a and of B1C
+data-only and narrowband (`scan.py:215-242`), the 3rd-order PLL and
 2nd-order DLL, and the phase remainders (`scan.py:298-320`).
 
 Samples are read at `cursor + j` straight from the capture: the cursor is
 an absolute int64 sample index, so neither the reference's per-block
 shift nor its pre-gathered, 128-aligned windows (which exist for the
-TPU's DMA) are needed.  Samples past the end of the capture read as zero,
-as the reference's zero-padded tail does.
+TPU's DMA) are needed, and the window offset `off` of the reference is 0.
+Samples past the end of the capture read as zero, as the reference's
+zero-padded tail does.
 
 Every expression keeps the reference's operation order, and divisions by
 configuration constants are multiplications by the float32 reciprocal:
 XLA's simplifier rewrites `x / const` that way, so the reference computes
 them so too.  PyTorch runs each operation separately, without fused
-multiply-adds, and `csrc/track_fused.cu` is compiled the same way
-(`-fmad=false`), so the kernel takes the same `ceil()` branches for the
-epoch length and the chip indices as this version does.
+multiply-adds, and the CUDA kernels are compiled the same way
+(`-fmad=false`), so they take the same `ceil()` branches for the epoch
+length and the chip indices as these versions do.
 """
 from __future__ import annotations
 
@@ -33,6 +46,11 @@ import numpy as np
 import torch
 
 from bds3_tpu.config import Signal, TrackMode
+from bds3_tpu_torch.track.prefix import (
+    buffers as prefix_buffers,
+    mix_prefix,
+    n_tiles,
+)
 from bds3_tpu_torch.track.state import SPLIT, TrackConfig
 
 W11 = float(np.sqrt(29.0 / 33.0))  # QMBOC pilot BOC(1,1) amplitude
@@ -80,11 +98,14 @@ def slot_names(cfg: TrackConfig) -> list[str]:
 
 
 def reference_supported(cfg: TrackConfig) -> bool:
-    """Configs this module (and the CUDA kernel) implement: B2a, data-only
-    or data+pilot, real input."""
-    return (cfg.signal == Signal.B2A
-            and cfg.mode in (TrackMode.DATA_ONLY, TrackMode.NARROWBAND)
-            and not cfg.complex_input)
+    """Configs this module implements, on real input: B2a in every track
+    mode (WIDEBAND is data+pilot on B2a, as in the reference), and B1C
+    data-only or narrowband."""
+    if cfg.complex_input:
+        return False
+    if cfg.signal == Signal.B2A:
+        return True
+    return cfg.mode in (TrackMode.DATA_ONLY, TrackMode.NARROWBAND)
 
 
 def describe(cfg: TrackConfig) -> str:
@@ -101,6 +122,8 @@ def loop_constants(cfg: TrackConfig) -> dict:
     """The float32 constants of one epoch, as Python floats that are exact
     float32 values; the kernel's parameter block carries the same ones."""
     one = np.float32(1.0)
+    inv0 = 1.0 / (cfg.step_base * cfg.m_data)   # host f64 (scan.py:175-177)
+    inv0_int = int(np.floor(inv0))
     return dict(
         step_base=_f32(cfg.step_base),
         inv_step_base=float(one / np.float32(cfg.step_base)),
@@ -117,6 +140,13 @@ def loop_constants(cfg: TrackConfig) -> dict:
         pf3=_f32(cfg.pf3),
         dll_c1=_f32(cfg.tau2 / cfg.tau1),
         dll_c2=_f32(cfg.int_time / cfg.tau1),
+        # B1C: E-L slope normalisation and the 11/29 blend (scan.py:225-242)
+        one_minus_spacing=_f32(1.0 - cfg.spacing),
+        inv40=float(one / np.float32(40.0)),
+        # bucket boundaries: 1/(step*m) split into int and fraction
+        inv0_int=inv0_int,
+        inv0_int_f=_f32(inv0_int),
+        inv0_frac=_f32(inv0 - inv0_int),
     )
 
 
@@ -126,69 +156,157 @@ def _eml(ie, qe, il, ql):
     return (e - l) / (e + l)
 
 
+def _check_supported(cfg: TrackConfig) -> None:
+    if not reference_supported(cfg):
+        raise NotImplementedError(
+            f"tracking for {describe(cfg)} is not ported yet")
+
+
+def _taps(cfg: TrackConfig, tables: TrackTables) -> list:
+    taps = [("d", tables.code[:, 0])]
+    if cfg.use_pilot:
+        taps.append(("p11", tables.code[:, 1]))
+    return taps
+
+
+def _blksize(cfg: TrackConfig, k: dict, rem_code, d_step):
+    """delta and blksize = ceil((L - rem)/step) (scan.py:125-131), int64."""
+    e_rel = d_step * k["inv_step_base"]
+    corr = 1.0 - e_rel + e_rel * e_rel
+    resid = k["q0_frac"] - (rem_code * k["inv_step_base"]
+                            + k["q0_sum"] * e_rel) * corr
+    delta = torch.ceil(resid).to(torch.int64)
+    return delta, cfg.q0_int + delta
+
+
+class _SampleGrid(NamedTuple):
+    """Per-sample indices of one epoch window, j in [0, n_max)."""
+
+    j: torch.Tensor        # (n,) int64
+    k_idx: torch.Tensor    # (n,) int64 coarse-table index j // SPLIT
+    r_f: torch.Tensor      # (n,) float32 j % SPLIT
+    j_f: torch.Tensor      # (n,) float32 j
+    carr_tk: torch.Tensor  # (C, n) float32 coarse carrier phase
+
+
+def _sample_grid(cfg: TrackConfig, consts) -> _SampleGrid:
+    j = torch.arange(cfg.n_max, device=consts.carr_t.device)
+    k_idx = j // SPLIT
+    return _SampleGrid(j, k_idx, (j % SPLIT).to(torch.float32),
+                       j.to(torch.float32), consts.carr_t[:, k_idx])
+
+
+def _mix(k: dict, capture, grid: _SampleGrid, a_base, cursor, blksize,
+         rem_cyc, d_cyc):
+    """The epoch's samples [cursor, cursor + blksize) times the local
+    carrier e^{-j theta} (scan.py:140-152): (i_bb, q_bb), each (C, n)."""
+    total = capture.shape[0]
+    g = cursor[:, None] + grid.j[None, :]
+    valid = (grid.j[None, :] < blksize[:, None]) & (g >= 0) & (g < total)
+    x = torch.where(valid, capture[g.clamp(0, total - 1)], 0)
+    x = x.to(torch.float32)
+    cyc = torch.remainder(grid.carr_tk + rem_cyc[:, None]
+                          + grid.r_f * a_base[:, None]
+                          + grid.j_f * d_cyc[:, None], 1.0)
+    ang = k["two_pi"] * cyc
+    return x * torch.cos(ang), -(x * torch.sin(ang))
+
+
+def _finish_epoch(cfg: TrackConfig, k: dict, consts, out: dict, st: tuple,
+                  delta, blksize) -> tuple:
+    """Discriminators, loop filters and phase remainders of one epoch from
+    its correlators in `out` (scan.py:215-320).  Adds the epoch's outputs
+    and new state to `out`; returns the new state tuple."""
+    (rem_code, rem_cyc, d_cyc, d_step,
+     code_nco, code_error, d1_carr, d2_carr) = st
+
+    # --- discriminators (scan.py:223-242) --------------------------------
+    carr_d = torch.atan(out["d_qp"] / out["d_ip"]) * k["inv2pi"]
+    code_d = _eml(out["d_ie"], out["d_qe"], out["d_il"], out["d_ql"])
+    b1c = cfg.signal == Signal.B1C
+    if b1c:
+        code_d = code_d * k["one_minus_spacing"]   # WB_tracking.m:409-410
+    if not cfg.use_pilot:
+        carr_err, code_err = carr_d, code_d
+    else:
+        # pilot pi/2 ahead of data; rotate back (tracking.m:341-353)
+        carr_p = torch.atan(-out["p11_ip"] / out["p11_qp"]) * k["inv2pi"]
+        code_p = _eml(out["p11_ie"], out["p11_qe"], out["p11_il"],
+                      out["p11_ql"])
+        if b1c:
+            # narrowband 11/29 power weighting (NB_tracking.m:353-384)
+            code_p = code_p * k["one_minus_spacing"]
+            carr_err = (carr_d * 11.0 + carr_p * 29.0) * k["inv40"]
+            code_err = (code_d * 11.0 + code_p * 29.0) * k["inv40"]
+        else:
+            carr_err = 0.5 * (carr_d + carr_p)
+            code_err = 0.5 * (code_d + code_p)
+
+    # --- loop filters (scan.py:298-306) ----------------------------------
+    d2_new = d2_carr + carr_err * k["pf3"]
+    d1_new = d2_new + carr_err * k["pf2"] + d1_carr
+    carr_nco = d1_new + carr_err * k["pf1"]
+    d_cyc_new = carr_nco * k["inv_fs"]
+    code_nco_new = code_nco + k["dll_c1"] * (code_err - code_error) \
+        + code_err * k["dll_c2"]
+    d_step_new = consts.init_dstep - code_nco_new * k["inv_fs"]
+
+    # --- phase remainders (scan.py:308-317) ------------------------------
+    delta_f = delta.to(torch.float32)
+    blk_f = blksize.to(torch.float32)
+    rem_cyc_new = torch.remainder(
+        rem_cyc + consts.q0_cyc + delta_f * consts.a_base + blk_f * d_cyc,
+        1.0)
+    rem_code_new = rem_code + k["q0_step_minus_l"] \
+        + delta_f * k["step_base"] + blk_f * d_step
+
+    out.update(
+        carr_err=carr_err, code_err=code_err,
+        carr_nco=carr_nco, code_nco=code_nco_new,
+        d_cyc=d_cyc, d_step=d_step,
+        rem_code_phase=rem_code, rem_carr_cyc=rem_cyc,
+        blksize=blk_f,
+    )
+    new = (rem_code_new, rem_cyc_new, d_cyc_new, d_step_new,
+           code_nco_new, code_err, d1_new, d2_new)
+    for f, v in zip(STATE_FIELDS, new):
+        out[f"st_{f}"] = v
+    return new
+
+
 def track_block_reference(cfg: TrackConfig, capture: torch.Tensor,
                           tables: TrackTables, consts, state: TrackState
                           ) -> tuple[TrackState, torch.Tensor]:
-    """Run cfg.epochs_per_block epochs for all channels.
+    """Run cfg.epochs_per_block epochs for all channels, direct sums.
 
     capture: (N,) int8, the whole capture.  consts: ChannelConsts of
     tensors (carr_t (C, k_max), a_base/q0_cyc/init_dstep (C,) float32).
     Returns (new TrackState, rows (W, C, len(slot_names(cfg))) float32).
     """
-    if not reference_supported(cfg):
-        raise NotImplementedError(
-            f"tracking for {describe(cfg)} is not ported yet")
+    _check_supported(cfg)
     k = loop_constants(cfg)
-    dev = capture.device
-    total = capture.shape[0]
     m = cfg.m_data
     lm = cfg.code_length * m
-
-    j = torch.arange(cfg.n_max, device=dev)
-    k_idx = j // SPLIT
-    r_f = (j % SPLIT).to(torch.float32)
-    j_f = j.to(torch.float32)
-    rsm = r_f * k["sm"]
-    ck_int = tables.ck_int[k_idx].to(torch.int64)
-    ck_frac = tables.ck_frac[k_idx]
-    carr_tk = consts.carr_t[:, k_idx]                       # (C, n_max)
-    a_base = consts.a_base
-    taps = [("d", tables.code[:, 0])]
-    if cfg.use_pilot:
-        taps.append(("p11", tables.code[:, 1]))
+    grid = _sample_grid(cfg, consts)
+    ck_int = tables.ck_int[grid.k_idx].to(torch.int64)
+    ck_frac = tables.ck_frac[grid.k_idx]
+    rsm = grid.r_f * k["sm"]
+    taps = _taps(cfg, tables)
     spc = k["spacing"]
     names = slot_names(cfg)
 
     cursor = state.cursor.clone()
-    (rem_code, rem_cyc, d_cyc, d_step,
-     code_nco, code_error, d1_carr, d2_carr) = state.statef.unbind(1)
+    st = tuple(state.statef.unbind(1))
     rows = []
     for _ in range(cfg.epochs_per_block):
-        # --- blksize = ceil((L - rem)/step) (scan.py:125-131) -------------
-        e_rel = d_step * k["inv_step_base"]
-        corr = 1.0 - e_rel + e_rel * e_rel
-        resid = k["q0_frac"] - (rem_code * k["inv_step_base"]
-                                + k["q0_sum"] * e_rel) * corr
-        delta = torch.ceil(resid).to(torch.int64)
-        blksize = cfg.q0_int + delta
-
-        # --- samples [cursor, cursor + blksize) -------------------------
-        g = cursor[:, None] + j[None, :]
-        valid = (j[None, :] < blksize[:, None]) & (g >= 0) & (g < total)
-        x = torch.where(valid, capture[g.clamp(0, total - 1)], 0)
-        x = x.to(torch.float32)
-
-        # --- local carrier e^{-j theta} (scan.py:140-152) ---------------
-        cyc = torch.remainder(carr_tk + rem_cyc[:, None]
-                              + r_f * a_base[:, None]
-                              + j_f * d_cyc[:, None], 1.0)
-        ang = k["two_pi"] * cyc
-        i_bb = x * torch.cos(ang)
-        q_bb = -(x * torch.sin(ang))
+        rem_code, rem_cyc, d_cyc, d_step = st[:4]
+        delta, blksize = _blksize(cfg, k, rem_code, d_step)
+        i_bb, q_bb = _mix(k, capture, grid, consts.a_base, cursor, blksize,
+                          rem_cyc, d_cyc)
 
         # --- E/P/L correlators (scan.py:76-89, 162-168) -----------------
         out = {}
-        jd = j_f * (d_step * m)[:, None]
+        jd = grid.j_f * (d_step * m)[:, None]
         for tap_name, table in taps:
             for tn, off in (("e", -spc), ("p", 0.0), ("l", spc)):
                 base = rem_code + off
@@ -199,57 +317,128 @@ def track_block_reference(cfg: TrackConfig, capture: torch.Tensor,
                 out[f"{tap_name}_i{tn}"] = (cv * i_bb).sum(1)
                 out[f"{tap_name}_q{tn}"] = (cv * q_bb).sum(1)
 
-        # --- discriminators (scan.py:216-235) ----------------------------
-        carr_d = torch.atan(out["d_qp"] / out["d_ip"]) * k["inv2pi"]
-        code_d = _eml(out["d_ie"], out["d_qe"], out["d_il"], out["d_ql"])
-        if not cfg.use_pilot:
-            carr_err, code_err = carr_d, code_d
-        else:
-            # pilot pi/2 ahead of data; rotate back (tracking.m:341-353)
-            carr_p = torch.atan(-out["p11_ip"] / out["p11_qp"]) * k["inv2pi"]
-            code_p = _eml(out["p11_ie"], out["p11_qe"], out["p11_il"],
-                          out["p11_ql"])
-            carr_err = 0.5 * (carr_d + carr_p)
-            code_err = 0.5 * (code_d + code_p)
-
-        # --- loop filters (scan.py:298-306) ------------------------------
-        d2_new = d2_carr + carr_err * k["pf3"]
-        d1_new = d2_new + carr_err * k["pf2"] + d1_carr
-        carr_nco = d1_new + carr_err * k["pf1"]
-        d_cyc_new = carr_nco * k["inv_fs"]
-        code_nco_new = code_nco + k["dll_c1"] * (code_err - code_error) \
-            + code_err * k["dll_c2"]
-        d_step_new = consts.init_dstep - code_nco_new * k["inv_fs"]
-
-        # --- phase remainders (scan.py:308-317) --------------------------
-        delta_f = delta.to(torch.float32)
-        blk_f = blksize.to(torch.float32)
-        rem_cyc_new = torch.remainder(
-            rem_cyc + consts.q0_cyc + delta_f * a_base + blk_f * d_cyc, 1.0)
-        rem_code_new = rem_code + k["q0_step_minus_l"] \
-            + delta_f * k["step_base"] + blk_f * d_step
-
-        out.update(
-            carr_err=carr_err, code_err=code_err,
-            carr_nco=carr_nco, code_nco=code_nco_new,
-            d_cyc=d_cyc, d_step=d_step,
-            rem_code_phase=rem_code, rem_carr_cyc=rem_cyc,
-            blksize=blk_f,
-        )
+        st = _finish_epoch(cfg, k, consts, out, st, delta, blksize)
         cursor = cursor + blksize
-        (rem_code, rem_cyc, d_cyc, d_step,
-         code_nco, code_error, d1_carr, d2_carr) = (
-            rem_code_new, rem_cyc_new, d_cyc_new, d_step_new,
-            code_nco_new, code_err, d1_new, d2_new)
-        for f, v in zip(STATE_FIELDS, (rem_code, rem_cyc, d_cyc, d_step,
-                                       code_nco, code_error, d1_carr,
-                                       d2_carr)):
-            out[f"st_{f}"] = v
         rows.append(torch.stack([out[n] for n in names], dim=-1))
 
-    statef = torch.stack([rem_code, rem_cyc, d_cyc, d_step,
-                          code_nco, code_error, d1_carr, d2_carr], dim=1)
-    return TrackState(cursor, statef), torch.stack(rows)
+    return TrackState(cursor, torch.stack(st, dim=1)), torch.stack(rows)
+
+
+# --- prefix functions of the bucket path ----------------------------------
+# prefix_fn(cfg, capture, consts) is called once per block and returns
+# prefix(cursor, blksize, rem_cyc, d_cyc) -> (P_i, P_q), each (C, n_max + 1)
+# float32 with P[:, x] = sum of the epoch's mixed samples j < x (so the last
+# entry is the epoch total).
+
+
+def bucket_prefix(cfg: TrackConfig, capture: torch.Tensor, consts):
+    """The "bucket" path: the in-epoch mix of track_block_reference, then
+    cat(0, cumsum) (scan.py:157-160).  Plain PyTorch on any device."""
+    k = loop_constants(cfg)
+    grid = _sample_grid(cfg, consts)
+
+    def prefix(cursor, blksize, rem_cyc, d_cyc):
+        i_bb, q_bb = _mix(k, capture, grid, consts.a_base, cursor, blksize,
+                          rem_cyc, d_cyc)
+        z = i_bb.new_zeros((i_bb.shape[0], 1))
+        return (torch.cat([z, torch.cumsum(i_bb, 1)], 1),
+                torch.cat([z, torch.cumsum(q_bb, 1)], 1))
+
+    return prefix
+
+
+def pallas_prefix(cfg: TrackConfig, capture: torch.Tensor, consts,
+                  mix=mix_prefix):
+    """The "bucket_pallas" path: `prefix.mix_prefix` (the CUDA kernel on
+    the card, its plain version on the CPU), fed the per-tile carrier
+    phase of scan.py:400-403 with the window offset 0.  The outputs and
+    the kernel's scratch are allocated once per block and rewritten every
+    epoch.  `mix` may be
+    `prefix.mix_prefix_reference`, to hold the kernel to its plain version
+    along a whole block on the card."""
+    n = cfg.n_max
+    dev = consts.carr_t.device
+    carr_t = consts.carr_t[:, :n_tiles(n)]
+    tile_f = torch.arange(n_tiles(n), dtype=torch.float32, device=dev) \
+        * float(SPLIT)
+    out, scratch = prefix_buffers(carr_t.shape[0], n, dev)
+
+    def prefix(cursor, blksize, rem_cyc, d_cyc):
+        slope = consts.a_base + d_cyc
+        base = carr_t + rem_cyc[:, None] + tile_f[None, :] * d_cyc[:, None]
+        return mix(capture, cursor, blksize, base, slope, n, out=out,
+                   scratch=scratch)
+
+    return prefix
+
+
+def track_block_bucket(cfg: TrackConfig, capture: torch.Tensor,
+                       tables: TrackTables, consts, state: TrackState,
+                       prefix_fn=bucket_prefix
+                       ) -> tuple[TrackState, torch.Tensor]:
+    """Run cfg.epochs_per_block epochs for all channels with the prefix-sum
+    correlator (scan.py:170-196); arguments and result as
+    track_block_reference.
+
+    The sum over the samples of chip bucket k, j in
+    ((k - base*m)/sm, (k+1 - base*m)/sm], is P[j_{k+1}] - P[j_k]; the
+    boundaries j_k depend only on m, the tap offset and d_step, so the data
+    and pilot taps share them, and one gather of P serves all six
+    correlators of a component (I or Q).
+    """
+    _check_supported(cfg)
+    k = loop_constants(cfg)
+    m = cfg.m_data
+    lm = cfg.code_length * m
+    n = cfg.n_max
+    dev = capture.device
+    prefix = prefix_fn(cfg, capture, consts)
+    taps = _taps(cfg, tables)
+    # (C, taps, K) chip tables
+    cv = torch.stack([t for _, t in taps], 1).to(torch.float32)
+    spc = k["spacing"]
+    offs = torch.tensor([-spc, 0.0, spc], dtype=torch.float32, device=dev)
+    k_i = torch.arange(-CODE_PAD, lm + CODE_PAD + 1, device=dev)
+    k_f = k_i.to(torch.float32)
+    kj = k_i * k["inv0_int"]
+    kfrac = k_f * k["inv0_frac"]
+    names = slot_names(cfg)
+
+    cursor = state.cursor.clone()
+    st = tuple(state.statef.unbind(1))
+    rows = []
+    for _ in range(cfg.epochs_per_block):
+        rem_code, rem_cyc, d_cyc, d_step = st[:4]
+        delta, blksize = _blksize(cfg, k, rem_code, d_step)
+        p_i, p_q = prefix(cursor, blksize, rem_cyc, d_cyc)
+
+        # --- chip boundaries j_k (scan.py:174-185), (C, 3, K+1) ----------
+        smm = k["sm"] + d_step * m
+        inv = 1.0 / smm
+        dinv = inv - k["inv0_int_f"] - k["inv0_frac"]
+        base = rem_code[:, None] + offs[None, :]              # (C, 3)
+        frac_part = kfrac + k_f * dinv[:, None, None] \
+            - ((base * m) * inv[:, None])[:, :, None]
+        j_k = kj + torch.floor(frac_part).to(torch.int64) + 1
+        iw = j_k.clamp(0, n).reshape(j_k.shape[0], -1)
+        # --- bucket sums and the dot with the tables (scan.py:186-196) ---
+        gi = p_i.gather(1, iw).reshape(j_k.shape)
+        gq = p_q.gather(1, iw).reshape(j_k.shape)
+        bi = (gi[..., 1:] - gi[..., :-1])[:, None]            # (C, 1, 3, K)
+        bq = (gq[..., 1:] - gq[..., :-1])[:, None]
+        ci = (cv[:, :, None] * bi).sum(-1)                    # (C, taps, 3)
+        cq = (cv[:, :, None] * bq).sum(-1)
+        out = {}
+        for t, (tap_name, _) in enumerate(taps):
+            for e, tn in enumerate(("e", "p", "l")):
+                out[f"{tap_name}_i{tn}"] = ci[:, t, e]
+                out[f"{tap_name}_q{tn}"] = cq[:, t, e]
+
+        st = _finish_epoch(cfg, k, consts, out, st, delta, blksize)
+        cursor = cursor + blksize
+        rows.append(torch.stack([out[name] for name in names], dim=-1))
+
+    return TrackState(cursor, torch.stack(st, dim=1)), torch.stack(rows)
 
 
 def unpack_rows(cfg: TrackConfig, rows: torch.Tensor) -> dict:

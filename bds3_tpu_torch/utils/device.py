@@ -1,4 +1,5 @@
-"""The `device` argument of the port's entry points."""
+"""The `device` argument of the port's entry points, and the checks the
+kernel wrappers make before they pass a tensor's pointer on."""
 from __future__ import annotations
 
 import torch
@@ -19,3 +20,17 @@ def resolve_device(device: str | torch.device) -> torch.device:
         raise ValueError(f"unsupported device {str(device)!r} "
                          "(expected 'cpu' or 'cuda[:N]')")
     return dev
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple, device: torch.device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
+    `device`: what a kernel that takes its raw pointer needs."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")

@@ -21,6 +21,33 @@ port's main path through its public entry points:
   4. full-rate  99.375 Msps, 2.2 s, 4 satellites: acquisition over PRNs
              1-63 must detect exactly those 4; 12 channels tracked for
              2000 epochs must all lock; kernel and plain-version times.
+             Then the same 2000 epochs through the prefix-sum path
+             (track(correlator="bucket_pallas"), the mix+prefix kernel):
+             12/12 locked, real-time factor beside the tracking kernel's.
+  5. prefix  mix_prefix (csrc/mix_prefix.cu) against mix_prefix_reference
+             and a float64 numpy oracle at B1C (10 channels) and B2a
+             (12 channels) 99.375 Msps epoch widths and at the B1C
+             receiver's (6 Msps, 5 channels), with windows past the
+             capture's end and blk < n: within 5e-4 of max|P_i| + 1.
+  6. bucket  one 20-epoch bucket_pallas block from the same state, B2a
+             (12 channels) and B1C narrowband (10 channels) at 99.375 Msps:
+             blksize and cursors equal, correlators within 1e-3 of
+             |a|.mean()+1 of the same path through the kernel's plain
+             version, and within 2e-2 of the plain bucket path (another
+             rounding of the carrier phase).
+  7. B1C     99.375 Msps narrowband, 10 channels over 4 satellites,
+             200 epochs through track(): "auto" must launch the mix+prefix
+             kernel and lock 10/10; real-time factor beside the plain
+             bucket path's.  Then run_receiver on the 6 Msps, 26 s,
+             5-satellite B1C scenario (seeds 5 and 2): 5 channels, the
+             kernel launched, >= 4 ephemerides with the true m_0, >= 10
+             fixes with a median 3D error < 2 m; then one 20-epoch
+             bucket_pallas block at these shapes against the same path
+             with the kernel's plain version (as in 6).
+
+With `--profile` it runs only the build and then torch.profiler over
+short runs of the tracking cells (see phase_profile), one JSON line each,
+and prints no kernel table.
 
 Each phase prints one JSON line.  Then come the kernel table
 ({"kernels": [...]}), the card's `nvidia-smi` name and power limit, and
@@ -49,6 +76,9 @@ FULL_SATS = [(5, 1650.0, 4100.0), (12, -2480.0, 8123.0),
              (19, 700.0, 55.0), (30, -310.0, 9000.0)]
 FULL_MS = 2200.0
 TOL = 1e-3   # kernel vs plain version, in units of |a|.mean() + 1
+PREFIX_TOL = 5e-4   # mix_prefix vs plain / oracle, units of max|P_i| + 1
+BUCKET_TOL = 2e-2   # bucket_pallas vs bucket, units of |a|.mean() + 1
+CAPTURE_KINDS = ("e2e", "full", "b1c_full", "b1c_e2e")
 
 
 def e2e_settings():
@@ -64,6 +94,30 @@ def full_settings():
     from bds3_tpu.config import b2a_settings
 
     return b2a_settings()
+
+
+def b1c_full_settings():
+    from bds3_tpu.config import TrackMode, b1c_settings
+
+    return b1c_settings(track_mode=TrackMode.NARROWBAND, resampling=False)
+
+
+def b1c_e2e_settings():
+    """tests/test_e2e_b1c.py:21-33."""
+    from bds3_tpu.config import TrackMode, b1c_settings
+
+    return b1c_settings(
+        sampling_freq=6e6, intermediate_freq=1.5e6, ms_to_process=26_000,
+        use_tropo_corr=False, acq_satellite_list=tuple(range(1, 7)),
+        num_channels=6, acq_coh_ms=3, acq_step=1000 / 3 / 2,
+        acq_search_band=3000.0, track_mode=TrackMode.NARROWBAND)
+
+
+def b1c_scenario():
+    from bds3_tpu.io.scenario import make_scenario
+
+    return make_scenario(b1c_e2e_settings(), RX_TRUTH, n_sats=5,
+                         sow_base=3600.0 * 3, seed=5)
 
 
 def sat_params(sats, amplitude=0.65):
@@ -92,31 +146,34 @@ def make_inits(s, sats, n_channels):
 def _synth_job(kind: str, path: str) -> None:
     """Background process: synthesize one capture into `path` (.npy)."""
     sys.path.insert(0, REPO)
-    if kind == "e2e":
-        from bds3_tpu.io.scenario import make_scenario, synthesize_scenario
+    from bds3_tpu.io import synthesize_if
+    from bds3_tpu.io.scenario import make_scenario, synthesize_scenario
 
+    if kind == "e2e":
         sc = make_scenario(e2e_settings(), RX_TRUTH, n_sats=5, seed=3)
         sig = synthesize_scenario(sc, noise_std=2.0, amplitude=0.7, seed=1)
+    elif kind == "b1c_e2e":
+        sig = synthesize_scenario(b1c_scenario(), noise_std=2.0,
+                                  amplitude=1.3, seed=2)
     else:
-        from bds3_tpu.io import synthesize_if
-
-        sig = synthesize_if(full_settings(), sat_params(FULL_SATS),
-                            n_ms=FULL_MS, noise_std=2.0, seed=11)
+        s = full_settings() if kind == "full" else b1c_full_settings()
+        sig = synthesize_if(s, sat_params(FULL_SATS), n_ms=FULL_MS,
+                            noise_std=2.0, seed=11)
     tmp = f"{path}.{os.getpid()}.tmp.npy"
     np.save(tmp, sig)
     os.replace(tmp, path)
 
 
 class Captures:
-    """The two large captures, made in spawned processes while the card
-    works; `get` waits for one.  `stop` ends any process still running."""
+    """The large captures, made in spawned processes while the card works;
+    `get` waits for one.  `stop` ends any process still running."""
 
     def __init__(self):
         os.makedirs(CAPTURES, exist_ok=True)
         ctx = mp.get_context("spawn")
         self.procs = {}
         self.paths = {k: os.path.join(CAPTURES, f"{k}_v1.npy")
-                      for k in ("e2e", "full")}
+                      for k in CAPTURE_KINDS}
         for kind, path in self.paths.items():
             if not os.path.exists(path):
                 p = ctx.Process(target=_synth_job, args=(kind, path))
@@ -159,18 +216,22 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare_block(cfg, capture, setup, label: str) -> dict:
-    """One block through the kernel and through its plain version, from
-    the same state, on the card; asserts agreement."""
+def compare_block(cfg, capture, setup, label: str, kernel: str = "fused",
+                  plain=None, tol: float = TOL) -> dict:
+    """One block through a kernel path (a driver.BLOCK_FNS name) and
+    through `plain` (a block function; by default the path's plain
+    version, track_block_reference), from the same state, on the card;
+    asserts agreement within `tol`."""
     import torch
 
-    from bds3_tpu_torch.track.fused import fused_track_block
+    from bds3_tpu_torch.track.driver import BLOCK_FNS
     from bds3_tpu_torch.track.scan import track_block_reference, unpack_rows
 
-    st_k, rows_k = fused_track_block(cfg, capture, setup.tables,
+    plain = plain or track_block_reference
+    st_k, rows_k = BLOCK_FNS[kernel](cfg, capture, setup.tables,
                                      setup.consts, setup.state)
-    st_r, rows_r = track_block_reference(cfg, capture, setup.tables,
-                                         setup.consts, setup.state)
+    st_r, rows_r = plain(cfg, capture, setup.tables, setup.consts,
+                         setup.state)
     torch.cuda.synchronize()
     k = {n: v.cpu().numpy() for n, v in unpack_rows(cfg, rows_k).items()}
     r = {n: v.cpu().numpy() for n, v in unpack_rows(cfg, rows_r).items()}
@@ -179,37 +240,43 @@ def compare_block(cfg, capture, setup, label: str) -> dict:
     if not torch.equal(st_k.cursor, st_r.cursor):
         raise AssertionError(f"{label}: cursors differ")
     # same sums in another order: correlators and discriminators agree
-    # within TOL of |a|.mean() + 1 (test_pallas_fused.py:71's scale)
+    # within tol of |a|.mean() + 1 (test_pallas_fused.py:71's scale)
     checked = [n for n in r if n.startswith(("d_", "p11_"))] \
         + ["carr_err", "code_err"]
     abs_err = {n: float(np.abs(k[n] - r[n]).max()) for n in checked}
     scaled = {n: abs_err[n] / (float(np.abs(r[n]).mean()) + 1.0)
               for n in checked}
-    bad = {n: e for n, e in scaled.items() if not e <= TOL}
+    bad = {n: e for n, e in scaled.items() if not e <= tol}
     if bad:
         raise AssertionError(f"{label}: kernel vs plain version beyond "
-                             f"{TOL} scaled: {bad}")
+                             f"{tol} scaled: {bad}")
     return {"max_scaled_err": max(scaled.values()),
             "max_abs_err": max(abs_err.values()),
-            "tolerance_scaled": TOL,
+            "tolerance_scaled": tol,
             "epochs": int(k["blksize"].shape[0]),
             "channels": int(k["blksize"].shape[1])}
 
 
-def time_block(fn, setup, capture, reps: int) -> float:
-    """Mean ms per call of one block, CUDA events, after one warm call."""
+def time_call(fn, reps: int) -> float:
+    """Mean ms per call of fn(), CUDA events, after one warm call."""
     import torch
 
-    fn(setup.cfg, capture, setup.tables, setup.consts, setup.state)
+    fn()
     torch.cuda.synchronize()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     ev0.record()
     for _ in range(reps):
-        fn(setup.cfg, capture, setup.tables, setup.consts, setup.state)
+        fn()
     ev1.record()
     torch.cuda.synchronize()
     return ev0.elapsed_time(ev1) / reps
+
+
+def time_block(fn, setup, capture, reps: int) -> float:
+    """Mean ms per call of one block function, CUDA events."""
+    return time_call(lambda: fn(setup.cfg, capture, setup.tables,
+                                setup.consts, setup.state), reps)
 
 
 def phase_build() -> float:
@@ -319,6 +386,7 @@ def phase_full_rate(caps: Captures) -> dict:
 
     from bds3_tpu_torch.acquire.pcps import acquire
     from bds3_tpu_torch.receiver import acquisition_signal_length
+    from bds3_tpu_torch.track import prefix
     from bds3_tpu_torch.track.driver import (
         as_capture, assemble_results, run_blocks, setup_tracking, track)
     from bds3_tpu_torch.track.fused import fused_track_block
@@ -353,22 +421,17 @@ def phase_full_rate(caps: Captures) -> dict:
         trk_s.append(time.perf_counter() - t0)
     if trk.n_epochs != n_ep:
         raise AssertionError(f"tracked {trk.n_epochs} epochs, expected {n_ep}")
-    ip = np.abs(trk.outputs["d_ip"][:, -500:]).mean(axis=1)
-    qp = np.abs(trk.outputs["d_qp"][:, -500:]).mean(axis=1)
-    locked = int((ip > 4 * qp).sum())
+    locked = lock_count(trk, 500)
     if locked != 12:
-        raise AssertionError(f"{locked}/12 channels locked: I/Q "
-                             f"{np.round(ip / qp, 2).tolist()}")
+        raise AssertionError(f"{locked}/12 channels locked")
 
     # the same tracking through the plain version, on the card
     setup = setup_tracking(capture, s, inits, n_ep, n_ep)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rows = run_blocks(setup, capture, block_fn=track_block_reference)
+    rows = run_blocks(setup, capture, track_block_reference)
     plain = assemble_results(setup, rows, s, n_ep, "reference")
     plain_s = time.perf_counter() - t0
-    ip_r = np.abs(plain.outputs["d_ip"][:, -500:]).mean(axis=1)
-    qp_r = np.abs(plain.outputs["d_qp"][:, -500:]).mean(axis=1)
 
     kernel_ms = time_block(fused_track_block, setup, capture, reps=3)
     plain_ms = time_block(track_block_reference, setup, capture, reps=1)
@@ -379,13 +442,338 @@ def phase_full_rate(caps: Captures) -> dict:
            "realtime_factor": seconds_tracked / trk_s[1],
            "plain_track_s": plain_s,
            "plain_realtime_factor": seconds_tracked / plain_s,
-           "plain_locked": int((ip_r > 4 * qp_r).sum()),
+           "plain_locked": lock_count(plain, 500),
            "kernel_block_ms": kernel_ms, "plain_block_ms": plain_ms}
+    emit(out)
+
+    # the same 2000 epochs through the prefix-sum path and its kernel
+    bk_s = []
+    for _ in range(2):          # cold, then warm
+        t0 = time.perf_counter()
+        trk_b = track(capture, s, inits, n_epochs=n_ep, epochs_per_block=n_ep,
+                      device=dev, correlator="bucket_pallas")
+        bk_s.append(time.perf_counter() - t0)
+    if trk_b.correlator != prefix.KERNEL_NAME or trk_b.n_epochs != n_ep:
+        raise AssertionError(f"bucket_pallas ran {trk_b.correlator!r} for "
+                             f"{trk_b.n_epochs} epochs")
+    locked_b = lock_count(trk_b, 500)
+    if locked_b != 12:
+        raise AssertionError(f"bucket_pallas: {locked_b}/12 channels locked")
+    emit({"phase": "track_b2a_99msps_12ch_bucket", "epochs": n_ep,
+          "channels": 12, "locked": locked_b, "cold_s": bk_s[0],
+          "warm_s": bk_s[1], "ms_per_epoch": bk_s[1] / n_ep * 1e3,
+          "realtime_factor": seconds_tracked / bk_s[1],
+          "kernel_track_fused_realtime_factor": out["realtime_factor"]})
+    return out
+
+
+def lock_count(trk, last: int) -> int:
+    """Channels whose mean |I_P| exceeds 4 mean |Q_P| over the last epochs."""
+    ip = np.abs(trk.outputs["d_ip"][:, -last:]).mean(axis=1)
+    qp = np.abs(trk.outputs["d_qp"][:, -last:]).mean(axis=1)
+    return int((ip > 4 * qp).sum())
+
+
+def prefix_shapes():
+    """(label, settings, channels) of every path here that runs the
+    mix+prefix kernel: B1C and B2a at 99.375 Msps, and the B1C receiver
+    scenario (6 Msps, 5 channels)."""
+    return (("b1c_10ch", b1c_full_settings(), 10),
+            ("b2a_12ch", full_settings(), 12),
+            ("b1c_e2e_5ch", b1c_e2e_settings(), 5))
+
+
+def plain_pallas_block():
+    """The bucket_pallas block function with the kernel's plain version in
+    place of the kernel: what the kernel path is held to, block for
+    block."""
+    import functools
+
+    from bds3_tpu_torch.track.prefix import mix_prefix_reference
+    from bds3_tpu_torch.track.scan import pallas_prefix, track_block_bucket
+
+    return functools.partial(
+        track_block_bucket,
+        prefix_fn=functools.partial(pallas_prefix, mix=mix_prefix_reference))
+
+
+def phase_prefix() -> dict:
+    """mix_prefix against its plain version and the float64 oracle at the
+    epoch widths of prefix_shapes; random samples and phases
+    (tests/test_pallas_prefix.py's), two windows past the capture's end, a
+    third of the windows with blk < n."""
+    import torch
+
+    from bds3_tpu_torch.track import prefix
+    from bds3_tpu_torch.track.state import make_track_config
+
+    dev = torch.device("cuda")
+    out = {"phase": "prefix_vs_plain", "tolerance_scaled": PREFIX_TOL}
+    for label, s, n_ch in prefix_shapes():
+        t0 = time.perf_counter()
+        n = make_track_config(s).n_max
+        total = 3 * n
+        capture, base, slope = prefix.random_inputs(7, n_ch, n, total)
+        cursor = np.linspace(0, 2 * n, n_ch).astype(np.int64)
+        cursor[-2:] = (total - n // 2, total - 1000)
+        blk = np.full(n_ch, n - 2, np.int64)
+        blk[::3] = n - 5000
+        args = tuple(torch.from_numpy(a).to(dev)
+                     for a in (capture, cursor, blk, base, slope)) + (n,)
+        k_i, k_q = prefix.mix_prefix(*args)
+        r_i, r_q = prefix.mix_prefix_reference(*args)
+        torch.cuda.synchronize()
+        o_i, o_q = prefix.mix_prefix_float64(capture, cursor, blk, base,
+                                             slope, n)
+        scale = np.abs(o_i).max(axis=1, keepdims=True) + 1.0
+        got = {"kernel": (k_i.cpu().numpy(), k_q.cpu().numpy()),
+               "plain": (r_i.cpu().numpy(), r_q.cpu().numpy())}
+        err = {}
+        for name, (g_i, g_q) in got.items():
+            err[f"{name}_vs_oracle_scaled"] = float(max(
+                (np.abs(g_i - o_i) / scale).max(),
+                (np.abs(g_q - o_q) / scale).max()))
+        (g_i, g_q), (p_i, p_q) = got["kernel"], got["plain"]
+        abs_err = float(max(np.abs(g_i - p_i).max(), np.abs(g_q - p_q).max()))
+        err["kernel_vs_plain_scaled"] = float(max(
+            (np.abs(g_i - p_i) / scale).max(),
+            (np.abs(g_q - p_q) / scale).max()))
+        bad = {k: v for k, v in err.items() if not v <= PREFIX_TOL}
+        if bad:
+            raise AssertionError(f"mix_prefix {label}: beyond {PREFIX_TOL} "
+                                 f"of max|P_i|+1: {bad}")
+        kernel_ms = time_call(lambda: prefix.mix_prefix(*args), reps=20)
+        plain_ms = time_call(lambda: prefix.mix_prefix_reference(*args),
+                             reps=5)
+        out[label] = {"channels": n_ch, "n": n, **err,
+                      "max_abs_err": abs_err, "max_abs_P": float(scale.max()),
+                      "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                      "seconds": time.perf_counter() - t0}
     emit(out)
     return out
 
 
+def phase_bucket_compare(caps: Captures) -> dict:
+    """One 20-epoch block through bucket_pallas (the mix+prefix kernel),
+    from the same state, at 99.375 Msps: against the same path with the
+    kernel's plain version (TOL), and against the plain bucket block, whose
+    per-sample carrier phase rounds differently from the per-tile phase
+    (BUCKET_TOL, the tolerance between the reference's own bucket and
+    bucket_pallas paths, tests/test_correlator_equiv.py:52)."""
+    import torch
+
+    from bds3_tpu_torch.track.driver import (
+        BLOCK_FNS, as_capture, setup_tracking)
+
+    plain_pallas = plain_pallas_block()
+    out = {"phase": "bucket_vs_plain_99msps"}
+    for label, s, kind, n_ch in (
+            ("b2a_12ch", full_settings(), "full", 12),
+            ("b1c_nb_10ch", b1c_full_settings(), "b1c_full", 10)):
+        capture = as_capture(caps.get(kind), torch.device("cuda"))
+        setup = setup_tracking(capture, s, make_inits(s, FULL_SATS, n_ch),
+                               20, 20)
+        out[label] = compare_block(setup.cfg, capture, setup, label,
+                                   "bucket_pallas", plain_pallas)
+        out[f"{label}_vs_bucket"] = compare_block(
+            setup.cfg, capture, setup, f"{label} vs bucket",
+            "bucket_pallas", BLOCK_FNS["bucket"], tol=BUCKET_TOL)
+        del capture
+    emit(out)
+    return out
+
+
+def phase_b1c_track(caps: Captures) -> dict:
+    """B1C narrowband at 99.375 Msps, 10 channels over the 4 satellites,
+    200 epochs (2 s) through track() with "auto"."""
+    import torch
+
+    from bds3_tpu_torch.track import prefix
+    from bds3_tpu_torch.track.driver import as_capture, track
+
+    s = b1c_full_settings()
+    dev = torch.device("cuda")
+    capture = as_capture(caps.get("b1c_full"), dev)
+    torch.cuda.synchronize()
+    inits = make_inits(s, FULL_SATS, 10)
+    n_ep = 200
+    trk_s = []
+    prefix.mix_prefix.launches = 0
+    for _ in range(2):          # cold, then warm
+        t0 = time.perf_counter()
+        trk = track(capture, s, inits, n_epochs=n_ep, epochs_per_block=n_ep,
+                    device=dev)
+        trk_s.append(time.perf_counter() - t0)
+    launches = prefix.mix_prefix.launches
+    if launches <= 0 or trk.correlator != prefix.KERNEL_NAME:
+        raise AssertionError(f"B1C tracking did not run the mix+prefix "
+                             f"kernel (launches={launches}, "
+                             f"correlator={trk.correlator!r})")
+    if trk.n_epochs != n_ep:
+        raise AssertionError(f"tracked {trk.n_epochs} epochs, expected {n_ep}")
+    locked = lock_count(trk, 100)
+    if locked != 10:
+        raise AssertionError(f"B1C: {locked}/10 channels locked")
+    t0 = time.perf_counter()
+    plain = track(capture, s, inits, n_epochs=n_ep, epochs_per_block=n_ep,
+                  device=dev, correlator="bucket")
+    plain_s = time.perf_counter() - t0
+    seconds_tracked = n_ep * s.int_time
+    out = {"phase": "track_b1c_nb_99msps_10ch", "epochs": n_ep,
+           "channels": 10, "locked": locked, "kernel_launches": launches,
+           "correlator": trk.correlator, "cold_s": trk_s[0],
+           "warm_s": trk_s[1], "ms_per_epoch": trk_s[1] / n_ep * 1e3,
+           "realtime_factor": seconds_tracked / trk_s[1],
+           "plain_bucket_s": plain_s,
+           "plain_bucket_realtime_factor": seconds_tracked / plain_s,
+           "plain_locked": lock_count(plain, 100)}
+    emit(out)
+    return out
+
+
+def phase_receiver_b1c(caps: Captures) -> dict:
+    """run_receiver on the tests/test_e2e_b1c.py scenario, on the card."""
+    import torch
+
+    from bds3_tpu_torch.receiver import run_receiver
+    from bds3_tpu_torch.track import prefix
+    from bds3_tpu_torch.track.driver import as_capture, setup_tracking
+
+    s = b1c_e2e_settings()
+    sig = caps.get("b1c_e2e")
+    truth = {e.prn: e for e in b1c_scenario().ephemerides}
+    t0 = time.perf_counter()
+    prefix.mix_prefix.launches = 0
+    res = run_receiver(sig, s, epochs_per_block=250, verbose=False,
+                       device="cuda")
+    torch.cuda.synchronize()
+    launches = prefix.mix_prefix.launches
+    wall = time.perf_counter() - t0
+    if len(res.channels) != 5:
+        raise AssertionError(f"{len(res.channels)} channels, expected 5: "
+                             f"{[c.prn for c in res.channels]}")
+    if launches <= 0 or res.track.correlator != prefix.KERNEL_NAME:
+        raise AssertionError(f"B1C tracking did not run the mix+prefix "
+                             f"kernel (launches={launches}, "
+                             f"correlator={res.track.correlator!r})")
+    nav = res.nav
+    if nav is None:
+        raise AssertionError("no navigation solution")
+    ephs = nav.ephemerides
+    wrong = [p for p, e in ephs.items() if abs(e.m_0 - truth[p].m_0) > 1e-9]
+    if len(ephs) < 4 or wrong:
+        raise AssertionError(f"{len(ephs)} ephemerides decoded, m_0 wrong "
+                             f"for PRNs {wrong} (need >= 4, all true)")
+    ok = np.isfinite(nav.x)
+    err = np.sqrt((nav.x[ok] - RX_TRUTH[0]) ** 2
+                  + (nav.y[ok] - RX_TRUTH[1]) ** 2
+                  + (nav.z[ok] - RX_TRUTH[2]) ** 2)
+    med = float(np.median(err)) if ok.any() else float("inf")
+    if ok.sum() < 10 or not med < 2.0:
+        raise AssertionError(f"{int(ok.sum())} fixes, median 3D error "
+                             f"{med:.3f} m (need >= 10 and < 2 m)")
+    out = {"phase": "receiver_b1c_e2e", "channels": len(res.channels),
+           "kernel_launches": launches, "correlator": res.track.correlator,
+           "epochs": int(res.track.n_epochs), "ephemerides": len(ephs),
+           "fixes": int(ok.sum()), "median_3d_err_m": med, "wall_s": wall,
+           "lock_ok": [bool(h["lock_ok"]) for h in res.health],
+           **{k: float(v) for k, v in res.timings.items()}}
+    emit(out)
+
+    # the kernel path against the same path with the kernel's plain
+    # version, one block at this path's shapes.  20 epochs, as in
+    # phase_bucket_compare: over a longer closed loop one float32 loop
+    # state rounds the other way sooner or later, whatever the two
+    # summation orders, and shifts the carrier phase by ~1e-4 cycles,
+    # which moves Q by I times that (3e-2 of mean|Q| over 250 epochs)
+    capture = as_capture(sig, torch.device("cuda"))
+    setup = setup_tracking(capture, s, res.channels, 20, 20)
+    cmp = compare_block(setup.cfg, capture, setup, "B1C receiver shapes",
+                        "bucket_pallas", plain_pallas_block())
+    emit({"phase": "bucket_vs_plain_b1c_receiver_shapes", **cmp})
+    return {**out, "cmp": cmp}
+
+
+def profile_cell(cell: str, s, sig, n_channels: int, n_ep: int,
+                 correlator: str) -> dict:
+    """track() on the card once to warm up, then once under torch.profiler:
+    device launches per epoch (kernels, and copies or fills apart), the
+    device's busy share (the union of its activity over the profiled wall
+    time) and the kernels that take the most device time.  The profiler
+    slows the host, so the busy share is a lower bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bds3_tpu_torch.track.driver import as_capture, track
+
+    dev = torch.device("cuda")
+    capture = as_capture(sig, dev)
+    inits = make_inits(s, FULL_SATS, n_channels)
+
+    def run():
+        trk = track(capture, s, inits, n_epochs=n_ep, epochs_per_block=n_ep,
+                    device=dev, correlator=correlator)
+        torch.cuda.synchronize()
+        return trk
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trk = run()
+        wall = time.perf_counter() - t0
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    busy_us, end = 0.0, -float("inf")
+    for e in evs:               # union of the device intervals
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        busy_us += max(hi - lo, 0.0)
+        end = max(end, hi)
+    copies = [e for e in evs if e.name.startswith(("Memcpy", "Memset"))]
+    per_kernel = {}
+    for e in evs:
+        if not e.name.startswith(("Memcpy", "Memset")):
+            n, us = per_kernel.get(e.name, (0, 0.0))
+            per_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
+    out = {"phase": "profile", "cell": cell, "correlator": trk.correlator,
+           "epochs": n_ep, "channels": n_channels,
+           "profiled_wall_ms_per_epoch": wall / n_ep * 1e3,
+           "device_events": len(evs),
+           "device_busy_share": busy_us * 1e-6 / wall if evs else None,
+           "kernel_launches_per_epoch": (len(evs) - len(copies)) / n_ep,
+           "copies_per_epoch": len(copies) / n_ep,
+           "top_kernels": [{"name": k[:80], "per_epoch": n / n_ep,
+                            "us_per_epoch": us / n_ep}
+                           for k, (n, us) in top]}
+    emit(out)
+    return out
+
+
+def phase_profile() -> None:
+    """The profiler over the tracking cells of PERF.md section 5 on short
+    captures: B1C narrowband 10 channels, 30 epochs, and B2a 12 channels,
+    200 epochs, at 99.375 Msps, through each path that takes them."""
+    from bds3_tpu.io import synthesize_if
+
+    for cell, s, n_ch, n_ep, paths in (
+            ("b1c_nb_99msps_10ch", b1c_full_settings(), 10, 30,
+             ("bucket_pallas", "bucket")),
+            ("b2a_99msps_12ch", full_settings(), 12, 200,
+             ("fused", "bucket_pallas", "bucket"))):
+        sig = synthesize_if(s, sat_params(FULL_SATS),
+                            n_ms=(n_ep + 5) * s.int_time * 1e3,
+                            noise_std=2.0, seed=11)
+        for correlator in paths:
+            profile_cell(cell, s, sig, n_ch, n_ep, correlator)
+
+
 def main() -> int:
+    if sys.argv[1:] not in ([], ["--profile"]):
+        print("usage: python3 chip_smoke.py [--profile]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -409,20 +797,28 @@ def main() -> int:
     smi = nvidia_smi()
     name, limit = (x.strip() for x in smi.split(",", 1))
     CARD.update(card=name, power_limit=limit)
+    if sys.argv[1:] == ["--profile"]:
+        phase_build()
+        phase_profile()
+        return 0
 
     caps = Captures()
     try:
         build_s = phase_build()
+        pre = phase_prefix()
         small = phase_kernel_small()
         full = phase_kernel_full()
         rate = phase_full_rate(caps)
         rx = phase_receiver(caps)
+        phase_bucket_compare(caps)
+        phase_b1c_track(caps)
+        rx_b1c = phase_receiver_b1c(caps)
     finally:
         caps.stop()
     if "jax" in sys.modules:
         raise AssertionError("the port imported JAX")
 
-    from bds3_tpu_torch.track import fused
+    from bds3_tpu_torch.track import fused, prefix
 
     kernels = [{
         "name": "track_fused",
@@ -434,6 +830,16 @@ def main() -> int:
                            rx["cmp"]["max_abs_err"]),
         "ms": rate["kernel_block_ms"],
         "plain_ms": rate["plain_block_ms"],
+    }, {
+        "name": "mix_prefix",
+        "route": "cuda",
+        "source": prefix.SOURCE,
+        "replaces": prefix.REPLACES,
+        "launches": rx_b1c["kernel_launches"],
+        "max_abs_err": max(pre[label]["max_abs_err"]
+                           for label, _, _ in prefix_shapes()),
+        "ms": pre["b1c_10ch"]["kernel_ms"],
+        "plain_ms": pre["b1c_10ch"]["plain_ms"],
     }]
     emit({"phase": "summary", "build_s": build_s})
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,13 @@
-"""The CUDA tracking kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+tracking kernel (track_fused.cu) and the mix+prefix kernel (mix_prefix.cu).
 
 Marked `cuda` and skipped without an NVIDIA GPU.  On a machine with one
 (and without JAX, which tests/conftest.py imports) run:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -13,8 +16,18 @@ from bds3_tpu.config import TrackMode, b2a_settings
 from bds3_tpu.io import SatParams, synthesize_if
 from bds3_tpu_torch.track import driver
 from bds3_tpu_torch.track.fused import fused_track_block
+from bds3_tpu_torch.track.prefix import (
+    SPLIT,
+    mix_prefix,
+    mix_prefix_float64,
+    buffers,
+    mix_prefix_reference,
+    random_inputs,
+)
 from bds3_tpu_torch.track.scan import (
     TrackState,
+    pallas_prefix,
+    track_block_bucket,
     track_block_reference,
     unpack_rows,
 )
@@ -51,6 +64,10 @@ def _setup(dev, mode, epochs):
     return cap, driver.setup_tracking(cap, s, inits, epochs, epochs)
 
 
+def _rows(cfg, rows):
+    return {n: v.cpu().numpy() for n, v in unpack_rows(cfg, rows).items()}
+
+
 @pytest.mark.parametrize("mode", [TrackMode.NARROWBAND, TrackMode.DATA_ONLY])
 def test_kernel_matches_plain_version(cuda, mode):
     """Exact blksize and cursors; the same sums in another order agree
@@ -64,8 +81,7 @@ def test_kernel_matches_plain_version(cuda, mode):
                                          setup.consts, setup.state)
     torch.cuda.synchronize()
     assert torch.equal(st_k.cursor, st_r.cursor)
-    k = {n: v.cpu().numpy() for n, v in unpack_rows(setup.cfg, rows_k).items()}
-    r = {n: v.cpu().numpy() for n, v in unpack_rows(setup.cfg, rows_r).items()}
+    k, r = _rows(setup.cfg, rows_k), _rows(setup.cfg, rows_r)
     np.testing.assert_array_equal(k["blksize"], r["blksize"])
     for n in r:
         scale = np.abs(r[n]).mean() + 1.0
@@ -83,3 +99,86 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         fused_track_block(setup.cfg, cap, setup.tables, setup.consts,
                           cpu_state)
+
+
+def _prefix_args(dev, n=5 * SPLIT + 77):
+    total = 60_000
+    cursor = np.array([0, 23_456, total - 9000])
+    blk = np.array([n, n - 2000, 12_000])
+    capture, base, slope = random_inputs(3, len(cursor), n, total)
+    args = (torch.from_numpy(capture).to(dev),
+            torch.tensor(cursor, device=dev), torch.tensor(blk, device=dev),
+            torch.from_numpy(base).to(dev), torch.from_numpy(slope).to(dev),
+            n)
+    return args, mix_prefix_float64(capture, cursor, blk, base, slope, n)
+
+
+def test_mix_prefix_matches_plain_version_and_oracle(cuda):
+    """A ragged last tile, a window past the capture's end and blk < n:
+    within 5e-4 of max|P_i| + 1 (tests/test_pallas_prefix.py's tolerance)
+    of the plain version and of the float64 oracle."""
+    args, (want_i, want_q) = _prefix_args(cuda)
+    before = mix_prefix.launches
+    k_i, k_q = mix_prefix(*args)
+    assert mix_prefix.launches == before + 1
+    r_i, r_q = mix_prefix_reference(*args)
+    torch.cuda.synchronize()
+    for got_i, got_q in ((k_i, k_q), (r_i, r_q)):
+        got_i, got_q = got_i.cpu().numpy(), got_q.cpu().numpy()
+        for c in range(want_i.shape[0]):
+            scale = np.abs(want_i[c]).max() + 1.0
+            np.testing.assert_allclose(got_i[c] / scale, want_i[c] / scale,
+                                       atol=5e-4)
+            np.testing.assert_allclose(got_q[c] / scale, want_q[c] / scale,
+                                       atol=5e-4)
+    scale = float(r_i.abs().max()) + 1.0
+    assert float((k_i - r_i).abs().max()) / scale <= 5e-4
+    assert float((k_q - r_q).abs().max()) / scale <= 5e-4
+
+
+def test_mix_prefix_rejects_what_the_kernel_does_not_take(cuda):
+    args, _ = _prefix_args(cuda)
+    capture, cursor, blk, base, slope, n = args
+    with pytest.raises(ValueError):
+        mix_prefix(capture, cursor.cpu(), blk, base, slope, n)
+    with pytest.raises(TypeError):
+        mix_prefix(capture, cursor, blk, base.double(), slope, n)
+    with pytest.raises(TypeError):
+        mix_prefix(capture, cursor, blk, base, slope.double(), n)
+    with pytest.raises(ValueError):
+        mix_prefix(capture, cursor, blk, base[:, :-1].contiguous(), slope, n)
+    out, scratch = buffers(len(cursor), n, capture.device)
+    with pytest.raises(ValueError):
+        mix_prefix(capture, cursor, blk, base, slope, n, out=out,
+                   scratch=scratch[:, :-1].contiguous())
+    with pytest.raises(ValueError):
+        mix_prefix(capture, cursor, blk, base, slope, n, out=out,
+                   scratch=scratch.cpu())
+
+
+@pytest.mark.parametrize("mode", [TrackMode.NARROWBAND, TrackMode.DATA_ONLY])
+def test_bucket_pallas_block_matches_bucket_block(cuda, mode):
+    """The prefix-sum path through the kernel, one block from the same
+    state, against the same path with the kernel's plain version: exact
+    blksize and cursors, correlators within 1e-3 of |a|.mean()+1.  Against
+    the plain bucket path, whose carrier phase is rounded per sample, not
+    per tile: the same geometry, and within 2e-2 (the tolerance between the
+    reference's own bucket and bucket_pallas, test_correlator_equiv.py)."""
+    cap, setup = _setup(cuda, mode, 30)
+    args = (setup.cfg, cap, setup.tables, setup.consts, setup.state)
+    before = mix_prefix.launches
+    st_k, rows_k = driver.BLOCK_FNS["bucket_pallas"](*args)
+    assert mix_prefix.launches == before + 30
+    plain_prefix = functools.partial(pallas_prefix, mix=mix_prefix_reference)
+    st_r, rows_r = track_block_bucket(*args, prefix_fn=plain_prefix)
+    st_b, rows_b = driver.BLOCK_FNS["bucket"](*args)
+    assert mix_prefix.launches == before + 30
+    torch.cuda.synchronize()
+    k, r, b = (_rows(setup.cfg, x) for x in (rows_k, rows_r, rows_b))
+    for want, st, tol in ((r, st_r, 1e-3), (b, st_b, 2e-2)):
+        assert torch.equal(st_k.cursor, st.cursor)
+        np.testing.assert_array_equal(k["blksize"], want["blksize"])
+        for n in want:
+            scale = np.abs(want[n]).mean() + 1.0
+            np.testing.assert_allclose(k[n] / scale, want[n] / scale,
+                                       atol=tol, err_msg=n)

@@ -1,6 +1,6 @@
-"""The whole B2a slice on the CPU: bds3_tpu_torch.receiver.run_receiver
-against bds3_tpu.receiver.run_receiver on a short synthesized scenario,
-the CLI, and the port's independence from JAX."""
+"""The whole slice on the CPU: bds3_tpu_torch.receiver.run_receiver
+against bds3_tpu.receiver.run_receiver on short synthesized B2a and B1C
+narrowband scenarios, the CLI, and the port's independence from JAX."""
 import os
 import subprocess
 import sys
@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import bds3_tpu.track.driver as ref_driver
-from bds3_tpu.config import b1c_settings, b2a_settings
+from bds3_tpu.config import TrackMode, b1c_settings, b2a_settings
 from bds3_tpu.io import SatParams, synthesize_if
 from bds3_tpu.io.scenario import make_scenario, synthesize_scenario
 from bds3_tpu.receiver import run_receiver as ref_run_receiver
@@ -31,6 +31,17 @@ def scenario():
     sig = synthesize_scenario(sc, n_ms=1500, noise_std=2.0, amplitude=0.7,
                               seed=1)
     return s, sig
+
+
+def _pin_reference(monkeypatch, correlator):
+    """Make the JAX driver keep `correlator` where it would pick its own
+    (as test_correlator_equiv.py pins it)."""
+    orig = ref_driver.make_track_config
+    monkeypatch.setattr(
+        ref_driver, "make_track_config",
+        lambda st, complex_input=False, epochs_per_block=100,
+        correlator=correlator: orig(st, complex_input, epochs_per_block,
+                                    correlator))
 
 
 def _assert_same_geometry(got, want):
@@ -68,12 +79,7 @@ def test_receiver_matches_reference(scenario, monkeypatch):
     would pick the bucket regrouping), as test_correlator_equiv.py pins
     it."""
     s, sig = scenario
-    orig = ref_driver.make_track_config
-    monkeypatch.setattr(
-        ref_driver, "make_track_config",
-        lambda st, complex_input=False, epochs_per_block=100,
-        correlator="gather": orig(st, complex_input, epochs_per_block,
-                                  "gather"))
+    _pin_reference(monkeypatch, "gather")
     ref = ref_run_receiver(sig, s, epochs_per_block=250, verbose=False)
     port = port_receiver.run_receiver(sig, s, epochs_per_block=250,
                                       verbose=False, device="cpu")
@@ -114,6 +120,40 @@ def test_receiver_matches_reference(scenario, monkeypatch):
     assert (port.nav is None) == (ref.nav is None)
 
 
+def test_b1c_receiver_matches_reference(monkeypatch):
+    """run_receiver on ~2 s of a 6 Msps B1C narrowband scenario (the
+    tests/test_e2e_b1c.py settings, shortened): the same channels, the same
+    epoch geometry, and the same lock verdicts; the reference is pinned to
+    bucket_pallas, the path the port's "auto" takes for B1C."""
+    s = b1c_settings(
+        sampling_freq=6e6, intermediate_freq=1.5e6, ms_to_process=2_000,
+        use_tropo_corr=False, acq_satellite_list=tuple(range(1, 7)),
+        num_channels=6, acq_coh_ms=3, acq_step=1000 / 3 / 2,
+        acq_search_band=3000.0, track_mode=TrackMode.NARROWBAND)
+    sc = make_scenario(s, RX_TRUTH, n_sats=4, sow_base=3600.0 * 3, seed=5)
+    sig = synthesize_scenario(sc, noise_std=2.0, amplitude=1.3, seed=2)
+    _pin_reference(monkeypatch, "bucket_pallas")
+    ref = ref_run_receiver(sig, s, epochs_per_block=50, verbose=False)
+    port = port_receiver.run_receiver(sig, s, epochs_per_block=50,
+                                      verbose=False, device="cpu")
+    assert ref.track.correlator == "bucket_pallas"
+    assert port.track.correlator == "bucket_pallas"
+
+    def key(c):
+        return c.prn, c.acquired_freq, c.code_phase
+
+    assert len(port.channels) == 4
+    assert [key(c) for c in port.channels] == [key(c) for c in ref.channels]
+    rt, pt = ref.track, port.track
+    assert pt.n_epochs == rt.n_epochs >= 150
+    _assert_same_geometry(pt.absolute_sample, rt.absolute_sample)
+    np.testing.assert_allclose(pt.carr_freq[:, -50:], rt.carr_freq[:, -50:],
+                               atol=0.25)
+    assert [h["lock_ok"] for h in port.health] == \
+        [h["lock_ok"] for h in ref.health]
+    assert all(h["lock_ok"] for h in port.health)
+
+
 def test_cuda_request_without_card_raises(scenario, monkeypatch):
     """A CUDA request on a machine without a card raises; nothing runs on
     the CPU instead."""
@@ -141,7 +181,8 @@ def test_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import bds3_tpu_torch, bds3_tpu_torch.receiver, "
             "bds3_tpu_torch.__main__, bds3_tpu_torch.convert, "
-            "bds3_tpu_torch.track.fused, bds3_tpu_torch._build\n"
+            "bds3_tpu_torch.track.fused, bds3_tpu_torch.track.prefix, "
+            "bds3_tpu_torch._build\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton') and sys.modules[m] is not None]\n"
             "assert not bad, bad\n")
@@ -187,6 +228,26 @@ class TestCLI:
             env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
         assert out.returncode != 0
         assert "not ported" in out.stderr
+
+    def test_b1c_narrowband_tracks(self, tmp_path):
+        """--signal b1c --track-mode 1 runs end to end (6 Msps, no
+        resampling below its threshold) through the bucket path."""
+        s = b1c_settings(sampling_freq=6e6, intermediate_freq=1.5e6)
+        sat = SatParams(prn=19, doppler_hz=500.0, code_phase_chips=100.0,
+                        amplitude=1.5)
+        path = tmp_path / "b1c.bin"
+        synthesize_if(s, [sat], n_ms=400.0, noise_std=2.0, seed=3).tofile(path)
+        out = subprocess.run(
+            [sys.executable, "-m", "bds3_tpu_torch", "--signal", "b1c",
+             "--file", str(path), "--device", "cpu", "--track-mode", "1",
+             "--fs", "6e6", "--if-freq", "1.5e6", "--prns", "19,7",
+             "--ms", "300"],
+            capture_output=True, text=True, timeout=400,
+            env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert "[acquire]" in out.stdout and "19(" in out.stdout
+        assert "[track]" in out.stdout
+        assert "bucket_pallas on cpu" in out.stdout
 
     def test_b1c_exits_with_error(self, tmp_path):
         out = subprocess.run(

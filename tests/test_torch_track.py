@@ -26,6 +26,7 @@ from bds3_tpu_torch.track import state as port_state
 from bds3_tpu_torch.track.fused import cuda_supported, fused_track_block
 from bds3_tpu_torch.track.scan import (
     output_names,
+    reference_supported,
     slot_names,
     track_block_reference,
     unpack_rows,
@@ -176,10 +177,12 @@ def test_wrapper_runs_plain_version_on_cpu():
 
 
 @pytest.mark.parametrize("settings", [
-    b1c_settings(track_mode=TrackMode.NARROWBAND, resampling=False),
+    b1c_settings(track_mode=TrackMode.WIDEBAND, resampling=False,
+                 wb_code_blend="split"),
     b1c_settings(track_mode=TrackMode.WIDEBAND, resampling=False),
-    b2a_settings(track_mode=TrackMode.WIDEBAND),
-], ids=["b1c_nb", "b1c_wb", "b2a_mode2"])
+    b1c_settings(track_mode=TrackMode.WIDEBAND, resampling=False,
+                 wb_code_blend="dotprod"),
+], ids=["b1c_wb_split", "b1c_wb", "b1c_wb_dotprod"])
 def test_unsupported_config_raises_on_cuda_request(settings):
     """Configurations outside the slice raise NotImplementedError naming
     themselves, before any device is touched (so also here, without a
@@ -203,9 +206,41 @@ def test_unsupported_capture_raises_on_cuda_request(capture):
 
 
 def test_supported_gate():
+    """The CUDA tracking kernel takes B2a in every track mode; it computes
+    the B2a discriminators only, so it refuses B1C, which the plain
+    versions and the bucket path take, and "auto" sends B1C there."""
     s = b2a_settings(**S10)
     assert cuda_supported(port_state.make_track_config(s))
-    assert cuda_supported(port_state.make_track_config(
-        b2a_settings(track_mode=TrackMode.DATA_ONLY)))
+    for mode in (TrackMode.DATA_ONLY, TrackMode.WIDEBAND):
+        assert cuda_supported(port_state.make_track_config(
+            b2a_settings(track_mode=mode)))
     assert not cuda_supported(port_state.make_track_config(
         s, complex_input=True))
+    for mode in (TrackMode.DATA_ONLY, TrackMode.NARROWBAND):
+        cfg = port_state.make_track_config(
+            b1c_settings(track_mode=mode, resampling=False))
+        assert reference_supported(cfg) and not cuda_supported(cfg)
+        assert port_driver.choose_correlator(cfg) == "bucket_pallas"
+        with pytest.raises(NotImplementedError, match="B1C"):
+            port_driver.choose_correlator(cfg, "fused")
+    assert port_driver.choose_correlator(
+        port_state.make_track_config(s)) == "fused"
+    with pytest.raises(ValueError, match="correlator"):
+        port_driver.choose_correlator(port_state.make_track_config(s), "fft")
+
+
+def test_b2a_mode2_matches_jax_gather():
+    """B2a track mode 2 (WIDEBAND) is data+pilot B2a in the reference
+    (state.py:62-68, scan.py:230-235): the same outputs as mode 1, held to
+    the JAX gather path with test_matches_jax_gather's tolerances."""
+    s = b2a_settings(track_mode=TrackMode.WIDEBAND, **S10)
+    sig = synthesize_if(s, [SAT19], n_ms=150.0, noise_std=1.0, seed=6)
+    ref = ref_driver.track(sig, s, [_init_for(ref_state, s, SAT19)],
+                           n_epochs=100, epochs_per_block=50,
+                           correlator="gather")
+    port = port_driver.track(sig, s, [_init_for(port_state, s, SAT19)],
+                             n_epochs=100, epochs_per_block=50, device="cpu")
+    assert port.correlator == "reference"
+    assert sorted(port.outputs) == sorted(ref.outputs)
+    assert "p11_ip" in port.outputs and "p61_ip" not in port.outputs
+    _assert_close(ref, port, PROMPTS, atol=2e-2, carr_atol=0.05)

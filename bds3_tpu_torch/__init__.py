@@ -3,15 +3,17 @@ kernels for NVIDIA Hopper (sm_90a).
 
 A port of `bds3_tpu` (JAX/XLA/Pallas), which stays beside it as the
 reference the port is tested against.  The modules mirror the reference's
-layout: `acquire.pcps`, `track.{state,scan,fused,driver}`, `utils.phase`,
-`receiver` and `__main__`.  Host-only parts that import no JAX (settings,
-signals, synthesis, navigation decoding, PVT) are used from `bds3_tpu`
-directly.
+layout: `acquire.{pcps,resample}`, `track.{state,scan,fused,prefix,
+driver}`, `utils.phase`, `receiver` and `__main__`.  The host modules
+(`config`, `signals`, `navmsg`, `pvt`, `observe.cn0`, `io`) are the
+reference's, copied with the import prefix rewritten: the port imports
+nothing of `bds3_tpu`.
 
-Ported so far: B2a, data-only or data+pilot tracking, real int8
-captures.  Every public entry point takes an explicit `device`; on a CUDA
-device the tracking epochs run in `csrc/track_fused.cu`, on the CPU in
-its plain PyTorch version (`track.scan.track_block_reference`).
+Ported so far: B2a and B1C in every track mode (B1C's preset is wideband
+QMBOC with resampled acquisition), real int8 captures.  Every public
+entry point takes an explicit `device`; on a CUDA device the tracking
+epochs run in `csrc/track_fused.cu`, on the CPU in its plain PyTorch
+version (`track.scan.track_block_reference`).
 
 Importing this package, or any module of it, imports neither JAX nor
 Triton and builds nothing: the CUDA library is compiled at first use

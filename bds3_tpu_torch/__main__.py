@@ -3,10 +3,10 @@
     python -m bds3_tpu_torch --signal b2a --file BDS_B2a_IF_signal.bin \
         --device cuda
 
-The same options as `python -m bds3_tpu`, plus --device.  What the port
-does not cover yet (B1C wideband, --resample where it applies, i.e. above
-the resampling threshold, and --transport) exits with an error before
-the file is opened.
+The same options as `python -m bds3_tpu`, plus --device.  `--signal b1c`
+runs the B1C preset (wideband, with resampled acquisition above 15 Msps).
+What the port does not cover yet (IQ captures, --transport) exits with
+an error before the file is opened.
 """
 from __future__ import annotations
 
@@ -38,8 +38,7 @@ def main(argv=None):
     p.add_argument("--checkpoint", help="write tracking checkpoint here")
     p.add_argument("--resume", help="resume PVT from a tracking checkpoint")
     p.add_argument("--resample", action="store_true",
-                   help="bandpass-decimate before acquisition (not ported: "
-                        "exits where it applies)")
+                   help="bandpass-decimate before acquisition")
     p.add_argument("--wb-code-blend",
                    choices=("composite", "nb", "split", "dotprod"),
                    help="B1C wideband code-DLL blend (see Settings)")
@@ -55,8 +54,8 @@ def main(argv=None):
                    help="PyTorch device to run on: cuda, cuda:N or cpu")
     args = p.parse_args(argv)
 
-    from bds3_tpu.config import FileType, TrackMode, b1c_settings, b2a_settings
-    from bds3_tpu.io.ifdata import IFDataFile, probe_stats
+    from bds3_tpu_torch.config import FileType, TrackMode, b1c_settings, b2a_settings
+    from bds3_tpu_torch.io.ifdata import IFDataFile, probe_stats
     from bds3_tpu_torch.receiver import (
         check_ported,
         resume_from_checkpoint,

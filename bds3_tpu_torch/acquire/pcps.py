@@ -1,8 +1,8 @@
 """Batched parallel-code-phase-search (PCPS) acquisition in PyTorch.
 
 Port of `bds3_tpu/acquire/pcps.py`.  The host half (settings, the sampled
-code tables, `AcqResults`) is a copy of the reference's lines 51-249,
-needed because importing the original imports JAX.  The search itself
+code tables, `AcqResults`) is a copy of the reference's lines 51-249: the
+port imports nothing of the JAX package.  The search itself
 runs on the capture's device with `torch.fft`:
 
 - `coarse_search` loops over chunks of Doppler bins (outer) and PRNs
@@ -16,8 +16,10 @@ runs on the capture's device with `torch.fft`:
   downloads only the per-PRN results.
 
 `torch.argmax`, like `jnp.argmax`, returns the first maximum, so ties
-resolve as in the reference.  Only the B1C resampling branch
-(pcps.py:437-461) is not ported and raises.
+resolve as in the reference.  Above its threshold rate, B1C acquisition
+first band-pass decimates the capture (`acquire.resample`, the branch of
+pcps.py:437-461): on the card with `torch.fft`, on the CPU with the host
+scipy filter, as the reference runs it off its chip.
 """
 from __future__ import annotations
 
@@ -28,11 +30,13 @@ import math
 import numpy as np
 import torch
 
-from bds3_tpu.config import Settings, Signal
-from bds3_tpu.signals import sample_chips
-from bds3_tpu.signals.b1c import b1c_data_boc11, b1c_pilot_boc11
-from bds3_tpu.signals.b2a import b2a_codes_matrix
-from bds3_tpu.signals.sampling import sample_chips_floor
+from bds3_tpu_torch.acquire import resample
+from bds3_tpu_torch.config import Settings, Signal
+from bds3_tpu_torch.signals import sample_chips
+from bds3_tpu_torch.signals.b1c import b1c_data_boc11, b1c_pilot_boc11
+from bds3_tpu_torch.signals.b2a import b2a_codes_matrix
+from bds3_tpu_torch.signals.sampling import sample_chips_floor
+from bds3_tpu_torch.track.state import check_settings
 from bds3_tpu_torch.utils.device import resolve_device
 from bds3_tpu_torch.utils.phase import carrier_table, phase_tables
 
@@ -83,6 +87,7 @@ class AcqResults:
 
 
 def make_acq_config(s: Settings) -> AcqConfig:
+    check_settings(s)
     spc = s.samples_per_code
     if s.signal == Signal.B2A:
         n_coh = spc
@@ -350,20 +355,33 @@ def acquire(signal, settings: Settings, prns=None,
 
     `signal` (numpy or a tensor; a tensor already on `device` is not
     copied) must cover n_fft samples plus the fine window (B2a:
-    (2+fine_noncoh) ms; B1C: (10+X) ms + one code period).
+    (2+fine_noncoh) ms; B1C: (10+X) ms + one code period), or with
+    resampling the receiver's acquisition_signal_length.
     """
     s = settings
+    check_settings(s)
     dev = resolve_device(device)
-    if s.resampling and s.sampling_freq > s.resampling_threshold:
-        raise NotImplementedError(
-            "acquisition with bandpass resampling (B1C above "
-            f"{s.resampling_threshold / 1e6:g} Msps) is not ported yet")
     prns = np.asarray(prns if prns is not None else s.acq_satellite_list)
-    cfg = make_acq_config(s)
-    d8, p8, fd, fp = _device_acq_tables(s, tuple(int(p) for p in prns), dev)
     if not isinstance(signal, torch.Tensor):
         signal = torch.from_numpy(np.require(signal, requirements=["C", "W"]))
     sig = signal.to(dev)
+
+    if s.resampling and s.sampling_freq > s.resampling_threshold:
+        # bandpass-sampling decimation (acquisition.m:52-124); results are
+        # mapped back to the original rate (pcps.py:437-461)
+        plan = resample.plan_resample(s)
+        if dev.type == "cpu":
+            low = torch.from_numpy(
+                resample.resample_signal(sig.numpy(), s, plan))
+        else:
+            low = resample.resample_signal_device(sig, s, plan)
+        s_low = dataclasses.replace(
+            s, sampling_freq=plan.new_fs, intermediate_freq=plan.new_if,
+            resampling=False)
+        return resample.recover_results(acquire(low, s_low, prns, dev), plan)
+
+    cfg = make_acq_config(s)
+    d8, p8, fd, fp = _device_acq_tables(s, tuple(int(p) for p in prns), dev)
 
     bin_freqs = cfg.freq_base + cfg.freq_step * np.arange(cfg.n_bins)
     a_bins, c1_bins = (torch.from_numpy(x).to(dev)

@@ -5,14 +5,22 @@ The JAX reference (`bds3_tpu.track.state`) and the port's host copies
 here takes either.  The port's driver uses these to put its host tables
 on the device, and the tests use them to start both packages from the
 same state.  Every float array goes over as float32, never float64.
+
+The two packages' settings and configs are dataclasses of the same fields
+whose enums are of different classes; `settings_from_reference` and
+`config_from_reference` copy them field by field and map each enum by
+name.  Nothing here imports the JAX package: it takes its objects as they
+come.
 """
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import numpy as np
 import torch
 
+from bds3_tpu_torch import config
 from bds3_tpu_torch.acquire.pcps import AcqResults
 from bds3_tpu_torch.track.scan import (
     STATE_FIELDS,
@@ -26,10 +34,27 @@ def _t(x, dtype: np.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
 
 
+def _own(value):
+    """An enum of another package as this package's member of the same
+    name (config.Signal, TrackMode or FileType); anything else as is."""
+    if isinstance(value, enum.Enum):
+        return getattr(config, type(value).__name__)[value.name]
+    return value
+
+
+def _copy_fields(cls, obj):
+    return cls(**{f.name: _own(getattr(obj, f.name))
+                  for f in dataclasses.fields(cls)})
+
+
+def settings_from_reference(s) -> config.Settings:
+    """The port's Settings equal to a `bds3_tpu` Settings."""
+    return _copy_fields(config.Settings, s)
+
+
 def config_from_reference(cfg) -> TrackConfig:
     """The port's TrackConfig equal to a `bds3_tpu` TrackConfig."""
-    return TrackConfig(**{f.name: getattr(cfg, f.name)
-                          for f in dataclasses.fields(TrackConfig)})
+    return _copy_fields(TrackConfig, cfg)
 
 
 def consts_to_torch(consts, device) -> ChannelConsts:
@@ -44,14 +69,24 @@ def consts_to_torch(consts, device) -> ChannelConsts:
 
 
 def tables_to_torch(cfg: TrackConfig, data_tables, pilot11_tables,
-                    ck_int, ck_frac, device) -> TrackTables:
+                    ck_int, ck_frac, device, pilot61_tables=None,
+                    ck61_int=None, ck61_frac=None) -> TrackTables:
     """Padded chip tables (C, L*m + 2*CODE_PAD) and the coarse code-phase
-    tables -> TrackTables; the pilot tap is kept only when tracked."""
+    tables -> TrackTables; the pilot tap is kept only when tracked.  B1C
+    wideband also takes the BOC(6,1) pilot tables (C, L*12 + 2*CODE_PAD)
+    and their coarse tables at m = 12 (the outputs of the reference's
+    channel_code_tables and code_coarse_tables(cfg, cfg.m_p61))."""
     taps = [data_tables, pilot11_tables] if cfg.use_pilot else [data_tables]
+    wb = {}
+    if cfg.wideband:
+        wb = dict(code61=_t(pilot61_tables, np.int8, device),
+                  ck61_int=_t(ck61_int, np.int32, device),
+                  ck61_frac=_t(ck61_frac, np.float32, device))
     return TrackTables(
         code=_t(np.stack(taps, axis=1), np.int8, device),
         ck_int=_t(ck_int, np.int32, device),
         ck_frac=_t(ck_frac, np.float32, device),
+        **wb,
     )
 
 
@@ -79,5 +114,4 @@ def state_from_torch(state: TrackState, offset: int) -> ChannelState:
 
 def acq_from_reference(acq) -> AcqResults:
     """A `bds3_tpu` AcqResults -> the port's AcqResults."""
-    return AcqResults(**{f.name: getattr(acq, f.name)
-                         for f in dataclasses.fields(AcqResults)})
+    return _copy_fields(AcqResults, acq)

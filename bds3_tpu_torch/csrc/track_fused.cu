@@ -6,6 +6,13 @@
 // bds3_tpu_torch/track/scan.py:track_block_reference, and the wrapper is
 // bds3_tpu_torch/track/fused.py:fused_track_block.
 //
+// It takes B2a in every track mode and B1C in every track mode: data-only,
+// narrowband (data and pilot BOC(1,1) at m = 2 table entries per chip) and
+// wideband QMBOC (those two, plus the pilot's BOC(6,1) component at m = 12
+// with its own coarse code-phase table and, for the "split" blend, its own
+// E-L spacing), with the composite pilot and the four code blends
+// (pallas_fused.py:1019-1073, scan.py:243-296).
+//
 // Design.  One thread block per channel.  The W epochs are a loop inside
 // the block: every epoch's window and chip indices depend on the previous
 // epoch's loop-filter output, so the epochs of a channel cannot run in
@@ -14,16 +21,29 @@
 // epoch, every thread computes the epoch length from that state, then the
 // threads stride over the epoch's samples: load the int8 sample (the
 // warp's loads are coalesced), mix it with the local carrier, and add it,
-// weighted by its chip, into 12 sums (I/Q x early/prompt/late x data/pilot).
-// A warp-shuffle and shared-memory reduction gives thread 0 the 12 sums; it
-// runs the discriminators, the 3rd-order PLL and 2nd-order DLL and the phase
-// remainders, writes the packed output row, and updates the shared state.
-// The code tables and the coarse phase tables sit in shared memory
-// (2 x 10262 int8 plus under 1 KB at the B2a reference rate).
+// weighted by its chip, into up to 18 sums (I/Q x early/prompt/late x
+// data/pilot BOC(1,1)/pilot BOC(6,1)).  A warp-shuffle and shared-memory
+// reduction gives thread 0 the sums; it runs the discriminators, the
+// 3rd-order PLL and 2nd-order DLL and the phase remainders, writes the
+// packed output row, and updates the shared state.  Each thread's sums
+// are compensated (Kahan) and the block reduces them in float64, so a
+// correlator is its exact sum rounded once to float32, as the plain
+// version's float64 sum is.  The two then agree to float32 rounding, not
+// to the ~1e-3 of mean|Q| that two float32 summation orders of ~1e6
+// samples leave on B1C's small BOC(6,1) Q correlators; and over a long
+// closed loop they stay together (a sum that rounds to another float32
+// moves the loop state, and 250 epochs amplify that to ~5e-3: measured
+// with float32 runs of 32 samples added in float64, which were 15%
+// faster on B2a but not exact enough).  The code tables and
+// the coarse phase tables sit in shared memory: 2 x 10262 int8 plus under
+// 1 KB at the B2a reference rate; at the B1C preset (99.375 Msps) 2 x 20492
+// int8 for the BOC(1,1) tables, 122792 int8 for BOC(6,1) and 245 x 20 bytes
+// of coarse tables, 168676 bytes of the 232448 a block may opt in to.
 //
 // What bounds it.  Each sample costs one sincosf, three chip-index
-// computations and twelve multiply-adds; the int8 capture is read once
-// (about 10^8 bytes per second of signal, far below the card's bandwidth).
+// computations (six for B1C wideband) and up to twelve multiply-adds
+// (eighteen); the int8 capture is read once (about 10^8 bytes per second
+// of signal, far below the card's bandwidth).
 // With one block per channel only C of the 132 SMs work, and each epoch
 // ends in a block-wide reduction and a serial scalar tail, so the kernel is
 // bound by latency, not by bytes or FLOPs.  Spreading an epoch over a
@@ -49,30 +69,60 @@
 //    is block-relative and shifted each block (driver.py:59,353), and only
 //    cursor - start enters the math;
 //  * atanf, as scan.py:223,232 call arctan (the TPU kernel's atan_poly
-//    exists only because Mosaic has no atan).
+//    exists only because Mosaic has no atan);
+//  * the constants the reference writes as Python expressions (1 - f, g61,
+//    W11, W61) arrive in the parameter block as the float32 values JAX
+//    casts them to (scan.py:loop_constants), never formed here in float32.
+//    At 99.375 Msps the BOC(6,1) index `frac` (m = 12) reaches about 500,
+//    where one float32 ulp is 6e-5 of a table entry, so it must round as the
+//    plain version's does: the same operations in the same order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define N_CANON 29   // values one epoch produces (see TrackParams.slot)
-#define MAX_TAPS 2   // data, pilot
+#define N_CANON 41   // values one epoch produces (see TrackParams.slot)
+#define MAX_TAPS 3   // data, pilot BOC(1,1), pilot BOC(6,1)
 #define N_ACC (MAX_TAPS * 6)
 #define THREADS 512
 #define SPLIT 4096
 #define CODE_PAD 16
 
+// canonical value indices (fused.py:_CANON)
+#define V_D 0        // data I_E I_P I_L Q_E Q_P Q_L
+#define V_P11 6      // pilot BOC(1,1), same order
+#define V_P61 12     // pilot BOC(6,1), same order
+#define V_PC 18      // QMBOC composite pilot, same order
+#define V_TAIL 24    // carr_err code_err carr_nco code_nco d_cyc d_step
+                     // rem_code_phase rem_carr_cyc blksize
+#define V_STATE 33   // the new state, STATE_FIELDS order
+
+// wb_code_blend codes (fused.py:_BLENDS)
+#define BLEND_COMPOSITE 0
+#define BLEND_NB 1
+#define BLEND_SPLIT 2
+#define BLEND_DOTPROD 3
+
 // Mirrors bds3_tpu_torch/track/fused.py:_Params field for field.
 struct TrackParams {
   int n_channels, n_epochs, n_taps, m, lm, table_len, k_max, q0_int, n_max,
-      n_slots;
-  // Output column of each produced value, -1 where the config has none:
-  // 0-5 data I_E I_P I_L Q_E Q_P Q_L, 6-11 the same for the pilot,
-  // 12 carr_err 13 code_err 14 carr_nco 15 code_nco 16 d_cyc 17 d_step
-  // 18 rem_code_phase 19 rem_carr_cyc 20 blksize, 21-28 the new state.
+      n_slots, b1c, wideband, blend, m61, lm61, table_len61;
+  // Output column of each produced value (the V_* indices above), -1
+  // where the config has none.
   int slot[N_CANON];
   float step_base, inv_step_base, inv_fs, q0_frac, q0_sum, q0_step_minus_l,
-      sm, spacing, inv2pi, two_pi, pf1, pf2, pf3, dll_c1, dll_c2;
+      sm, spacing, inv2pi, two_pi, pf1, pf2, pf3, dll_c1, dll_c2,
+      one_minus_spacing, inv40, w11, w61, spacing61, dll_f, one_minus_dll_f,
+      g61, sm61;
 };
+
+// sum += v with the rounding error carried in c (Kahan); -fmad=false and
+// nvcc's IEEE defaults keep the compensation from being folded away
+__device__ __forceinline__ void kahan_add(float& sum, float& c, float v) {
+  const float y = v - c;
+  const float t = sum + y;
+  c = (t - sum) - y;
+  sum = t;
+}
 
 __device__ __forceinline__ float mod1(float x) {
   float r = fmodf(x, 1.0f);
@@ -85,11 +135,85 @@ __device__ __forceinline__ float eml(float ie, float qe, float il, float ql) {
   return (e - l) / (e + l);
 }
 
+// eml over one tap's six sums, I_E I_P I_L Q_E Q_P Q_L
+__device__ __forceinline__ float eml6(const float* a) {
+  return eml(a[0], a[3], a[2], a[5]);
+}
+
+// (carr_err, code_err) of one epoch from its sums v[0, V_PC) (scan.py:
+// 223-296); B1C wideband also writes the composite pilot to v[V_PC..].
+__device__ void discriminators(const TrackParams& p, float* v,
+                               float* carr_err, float* code_err) {
+  const float* d = v + V_D;
+  const float* q11 = v + V_P11;
+  const float carr_d = atanf(d[4] / d[1]) * p.inv2pi;
+  float code_d = eml6(d);
+  if (p.b1c) code_d = code_d * p.one_minus_spacing;  // WB_tracking.m:409-410
+  if (p.n_taps == 1) {
+    *carr_err = carr_d;
+    *code_err = code_d;
+    return;
+  }
+  if (!p.wideband) {
+    // pilot pi/2 ahead of data; rotate back (tracking.m:341-353)
+    const float carr_p = atanf(-q11[1] / q11[4]) * p.inv2pi;
+    float code_p = eml6(q11);
+    if (p.b1c) {
+      // narrowband 11/29 power weighting (NB_tracking.m:353-384)
+      code_p = code_p * p.one_minus_spacing;
+      *carr_err = (carr_d * 11.0f + carr_p * 29.0f) * p.inv40;
+      *code_err = (code_d * 11.0f + code_p * 29.0f) * p.inv40;
+    } else {
+      *carr_err = 0.5f * (carr_d + carr_p);
+      *code_err = 0.5f * (code_d + code_p);
+    }
+    return;
+  }
+  // B1C wideband QMBOC composite pilot (WB_tracking.m:374-396,414-419)
+  const float* q61 = v + V_P61;
+  float* pc = v + V_PC;
+  for (int e = 0; e < 3; ++e) {
+    pc[e] = (-p.w61) * q61[e] + p.w11 * q11[3 + e];
+    pc[3 + e] = (-p.w61) * q61[3 + e] - p.w11 * q11[e];
+  }
+  const float carr_p = atanf(pc[4] / pc[1]) * p.inv2pi;
+  *carr_err = (carr_d + 3.0f * carr_p) * 0.25f;
+  float code_p;
+  if (p.blend == BLEND_NB) {
+    const float code_p11 = eml6(q11) * p.one_minus_spacing;
+    *code_err = (code_d * 11.0f + code_p11 * 29.0f) * p.inv40;
+    return;
+  } else if (p.blend == BLEND_SPLIT) {
+    const float code_p11 = eml6(q11) * p.one_minus_spacing;
+    const float code_p61 = eml6(q61) * p.g61;
+    code_p = 0.3f * code_p11 + 0.7f * code_p61;
+  } else if (p.blend == BLEND_DOTPROD) {
+    const float dp_num = (pc[0] - pc[2]) * pc[1] + (pc[3] - pc[5]) * pc[4];
+    const float dp_den = pc[1] * pc[1] + pc[4] * pc[4];
+    code_p = 0.25f * dp_num / dp_den * p.one_minus_spacing;
+  } else {
+    code_p = eml6(pc) * p.one_minus_spacing;
+  }
+  *code_err = code_d * p.dll_f + code_p * p.one_minus_dll_f;
+}
+
+// Chip index (scan.py:85-89): (ck_int + ceil(chi*m) - 1) mod (L*m).
+__device__ __forceinline__ int chip_index(float base_m, float ck_frac,
+                                          int ck_int, float rsm, float jd,
+                                          int lm) {
+  const float frac = ((base_m + ck_frac) + rsm) + jd;
+  int idx = (ck_int + (int)ceilf(frac) - 1) % lm;
+  return idx < 0 ? idx + lm : idx;
+}
+
 __global__ void __launch_bounds__(THREADS)
 track_fused_kernel(const int8_t* __restrict__ capture, long long total,
                    const int8_t* __restrict__ code,    // (C, taps, table_len)
                    const int* __restrict__ ck_int,     // (k_max,)
                    const float* __restrict__ ck_frac,  // (k_max,)
+                   const int8_t* __restrict__ code61,  // (C, table_len61)
+                   const int* __restrict__ ck61_int,     // (k_max,)
+                   const float* __restrict__ ck61_frac,  // (k_max,)
                    const float* __restrict__ carr_t,   // (C, k_max)
                    const float* __restrict__ a_base,   // (C,)
                    const float* __restrict__ q0_cyc,   // (C,)
@@ -101,14 +225,18 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
                    long long* __restrict__ cursor_out,    // (C,)
                    const TrackParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int k_wb = p.wideband ? p.k_max : 0;
   int* s_ck_int = reinterpret_cast<int*>(smem);
   float* s_ck_frac = reinterpret_cast<float*>(s_ck_int + p.k_max);
   float* s_carr = s_ck_frac + p.k_max;
-  int8_t* s_code = reinterpret_cast<int8_t*>(s_carr + p.k_max);
+  int* s_ck61_int = reinterpret_cast<int*>(s_carr + p.k_max);
+  float* s_ck61_frac = reinterpret_cast<float*>(s_ck61_int + k_wb);
+  int8_t* s_code = reinterpret_cast<int8_t*>(s_ck61_frac + k_wb);
+  int8_t* s_code61 = s_code + p.n_taps * p.table_len;
 
   __shared__ float s_state[8];
   __shared__ long long s_cursor;
-  __shared__ float s_part[THREADS / 32][N_ACC];
+  __shared__ double s_part[THREADS / 32][N_ACC];
   __shared__ float s_sum[N_ACC];
 
   const int c = blockIdx.x;
@@ -120,15 +248,24 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
     s_ck_frac[i] = ck_frac[i];
     s_carr[i] = carr_t[(size_t)c * p.k_max + i];
   }
+  for (int i = tid; i < k_wb; i += blockDim.x) {
+    s_ck61_int[i] = ck61_int[i];
+    s_ck61_frac[i] = ck61_frac[i];
+  }
   const int8_t* code_c = code + (size_t)c * p.n_taps * p.table_len;
   for (int i = tid; i < p.n_taps * p.table_len; i += blockDim.x)
     s_code[i] = code_c[i];
+  if (p.wideband) {
+    const int8_t* code61_c = code61 + (size_t)c * p.table_len61;
+    for (int i = tid; i < p.table_len61; i += blockDim.x)
+      s_code61[i] = code61_c[i];
+  }
   if (tid < 8) s_state[tid] = state_in[c * 8 + tid];
   if (tid == 0) s_cursor = cursor_in[c];
   const float ab = a_base[c];
   __syncthreads();
 
-  const float mf = (float)p.m;
+  const float mf = (float)p.m, m61f = (float)p.m61;
   for (int w = 0; w < p.n_epochs; ++w) {
     const float rem_code = s_state[0], rem_cyc = s_state[1];
     const float d_cyc = s_state[2], d_step = s_state[3];
@@ -147,11 +284,15 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
     const float base[3] = {(rem_code + (-p.spacing)) * mf,
                            (rem_code + 0.0f) * mf,
                            (rem_code + p.spacing) * mf};
+    const float base61[3] = {(rem_code + (-p.spacing61)) * m61f,
+                             (rem_code + 0.0f) * m61f,
+                             (rem_code + p.spacing61) * m61f};
     const float dsm = d_step * mf;
+    const float dsm61 = d_step * m61f;
 
-    float acc[N_ACC];
+    float acc[N_ACC], comp[N_ACC];
 #pragma unroll
-    for (int i = 0; i < N_ACC; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < N_ACC; ++i) acc[i] = comp[i] = 0.0f;
 
     for (int j = tid; j < n; j += blockDim.x) {
       const long long g = cursor + j;
@@ -169,51 +310,55 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
       const float jd = j_f * dsm;
 #pragma unroll
       for (int e = 0; e < 3; ++e) {
-        // chip index (scan.py:85-89): (ceil(chi*m) - 1) mod (L*m)
-        const float frac = ((base[e] + s_ck_frac[k]) + rsm) + jd;
-        int idx = (s_ck_int[k] + (int)ceilf(frac) - 1) % p.lm;
-        if (idx < 0) idx += p.lm;
+        const int idx = chip_index(base[e], s_ck_frac[k], s_ck_int[k], rsm,
+                                   jd, p.lm);
 #pragma unroll
-        for (int t = 0; t < MAX_TAPS; ++t) {
+        for (int t = 0; t < 2; ++t) {
           if (t < p.n_taps) {
             const float cv = (float)s_code[t * p.table_len + idx + CODE_PAD];
-            acc[t * 6 + e] += cv * ib;
-            acc[t * 6 + 3 + e] += cv * qb;
+            kahan_add(acc[t * 6 + e], comp[t * 6 + e], cv * ib);
+            kahan_add(acc[t * 6 + 3 + e], comp[t * 6 + 3 + e], cv * qb);
           }
+        }
+      }
+      if (p.wideband) {
+        // the BOC(6,1) pilot at m = 12, its own coarse table and spacing
+        const float rsm61 = r_f * p.sm61;
+        const float jd61 = j_f * dsm61;
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          const int idx = chip_index(base61[e], s_ck61_frac[k], s_ck61_int[k],
+                                     rsm61, jd61, p.lm61);
+          const float cv = (float)s_code61[idx + CODE_PAD];
+          kahan_add(acc[12 + e], comp[12 + e], cv * ib);
+          kahan_add(acc[15 + e], comp[15 + e], cv * qb);
         }
       }
     }
 
-    // block reduction: warp shuffles, then one partial per warp
+    // block reduction in float64: warp shuffles, then one partial per
+    // warp; each sum is rounded to float32 once, at the end
 #pragma unroll
     for (int i = 0; i < N_ACC; ++i) {
-      float v = acc[i];
+      double v = (double)acc[i] - (double)comp[i];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
       if ((tid & 31) == 0) s_part[tid >> 5][i] = v;
     }
     __syncthreads();
     if (tid < N_ACC) {
-      float v = 0.0f;
+      double v = 0.0;
       for (int wi = 0; wi < n_warps; ++wi) v += s_part[wi][tid];
-      s_sum[tid] = v;
+      s_sum[tid] = (float)v;
     }
     __syncthreads();
 
     if (tid == 0) {
-      const float* o = s_sum;  // data I_E I_P I_L Q_E Q_P Q_L
-      // discriminators (scan.py:216-235)
-      const float carr_d = atanf(o[4] / o[1]) * p.inv2pi;
-      const float code_d = eml(o[0], o[3], o[2], o[5]);
-      float carr_err = carr_d, code_err = code_d;
-      if (p.n_taps == 2) {
-        // pilot pi/2 ahead of data; rotate back (tracking.m:341-353)
-        const float* q = o + 6;
-        const float carr_p = atanf(-q[1] / q[4]) * p.inv2pi;
-        const float code_p = eml(q[0], q[3], q[2], q[5]);
-        carr_err = 0.5f * (carr_d + carr_p);
-        code_err = 0.5f * (code_d + code_p);
-      }
+      float v[N_CANON];
+#pragma unroll
+      for (int i = 0; i < N_ACC; ++i) v[i] = s_sum[i];
+      float carr_err, code_err;
+      discriminators(p, v, &carr_err, &code_err);
       const float code_nco = s_state[4], code_error = s_state[5];
       const float d1_carr = s_state[6], d2_carr = s_state[7];
 
@@ -234,32 +379,31 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
           ((rem_code + p.q0_step_minus_l) + delta_f * p.step_base) +
           blk_f * d_step;
 
-      float v[N_CANON];
-#pragma unroll
-      for (int i = 0; i < N_ACC; ++i) v[i] = o[i];
-      v[12] = carr_err;
-      v[13] = code_err;
-      v[14] = carr_nco;
-      v[15] = code_nco_new;
-      v[16] = d_cyc;
-      v[17] = d_step;
-      v[18] = rem_code;
-      v[19] = rem_cyc;
-      v[20] = blk_f;
-      v[21] = rem_code_new;
-      v[22] = rem_cyc_new;
-      v[23] = d_cyc_new;
-      v[24] = d_step_new;
-      v[25] = code_nco_new;
-      v[26] = code_err;
-      v[27] = d1_new;
-      v[28] = d2_new;
+      float* t = v + V_TAIL;
+      t[0] = carr_err;
+      t[1] = code_err;
+      t[2] = carr_nco;
+      t[3] = code_nco_new;
+      t[4] = d_cyc;
+      t[5] = d_step;
+      t[6] = rem_code;
+      t[7] = rem_cyc;
+      t[8] = blk_f;
+      float* s = v + V_STATE;
+      s[0] = rem_code_new;
+      s[1] = rem_cyc_new;
+      s[2] = d_cyc_new;
+      s[3] = d_step_new;
+      s[4] = code_nco_new;
+      s[5] = code_err;
+      s[6] = d1_new;
+      s[7] = d2_new;
       float* row = out + ((size_t)w * p.n_channels + c) * p.n_slots;
 #pragma unroll
       for (int i = 0; i < N_CANON; ++i)
         if (p.slot[i] >= 0) row[p.slot[i]] = v[i];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) s_state[i] = v[21 + i];
+      for (int i = 0; i < 8; ++i) s_state[i] = s[i];
       s_cursor = cursor + blksize;
     }
     __syncthreads();
@@ -269,18 +413,28 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
   if (tid == 0) cursor_out[c] = s_cursor;
 }
 
+// Dynamic shared memory of one block: the coarse tables and the carrier
+// table (int32 + 2 float32 per entry), the BOC(6,1) coarse tables where
+// wideband, and the int8 chip tables.
+static size_t smem_bytes(const TrackParams& p) {
+  size_t b = (size_t)p.k_max * 12 + (size_t)p.n_taps * p.table_len;
+  if (p.wideband) b += (size_t)p.k_max * 8 + (size_t)p.table_len61;
+  return b;
+}
+
 // Host entry point, called through ctypes.  Launches on `stream` and does
 // not synchronize; returns cudaGetLastError() (0 on success).
 extern "C" int bds3_track_fused(const void* capture, long long total,
                                 const void* code, const void* ck_int,
-                                const void* ck_frac, const void* carr_t,
-                                const void* a_base, const void* q0_cyc,
-                                const void* init_dstep, const void* state_in,
-                                const void* cursor_in, void* out,
-                                void* state_out, void* cursor_out,
+                                const void* ck_frac, const void* code61,
+                                const void* ck61_int, const void* ck61_frac,
+                                const void* carr_t, const void* a_base,
+                                const void* q0_cyc, const void* init_dstep,
+                                const void* state_in, const void* cursor_in,
+                                void* out, void* state_out, void* cursor_out,
                                 const TrackParams* params, void* stream) {
   const TrackParams p = *params;
-  const size_t smem = (size_t)p.k_max * 12 + (size_t)p.n_taps * p.table_len;
+  const size_t smem = smem_bytes(p);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         track_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -289,7 +443,8 @@ extern "C" int bds3_track_fused(const void* capture, long long total,
   }
   track_fused_kernel<<<p.n_channels, THREADS, smem, (cudaStream_t)stream>>>(
       (const int8_t*)capture, total, (const int8_t*)code, (const int*)ck_int,
-      (const float*)ck_frac, (const float*)carr_t, (const float*)a_base,
+      (const float*)ck_frac, (const int8_t*)code61, (const int*)ck61_int,
+      (const float*)ck61_frac, (const float*)carr_t, (const float*)a_base,
       (const float*)q0_cyc, (const float*)init_dstep, (const float*)state_in,
       (const long long*)cursor_in, (float*)out, (float*)state_out,
       (long long*)cursor_out, p);

@@ -1,12 +1,12 @@
 """Top-level receiver pipeline: acquisition -> tracking -> nav decode ->
 PVT, on a PyTorch device.
 
-Port of `bds3_tpu/receiver.py`, for B2a and for B1C data-only and
-narrowband on real int8 captures without resampling.  The capture goes to
-`device` once, as int8, before acquisition; acquisition and tracking both
-read it there.
-C/N0 and lock health, navigation decoding and PVT run on the host, from
-`bds3_tpu` itself.
+Port of `bds3_tpu/receiver.py`, for B2a and B1C in every track mode on
+real int8 captures, with B1C's band-pass resampled acquisition.  The
+capture goes to `device` once, as int8, before acquisition; acquisition
+and tracking both read it there.
+C/N0 and lock health, navigation decoding and PVT run on the host, in the
+port's own copies of the reference's host modules.
 """
 from __future__ import annotations
 
@@ -17,11 +17,12 @@ import time
 import numpy as np
 import torch
 
-from bds3_tpu.config import FileType, Settings
-from bds3_tpu.io.ifdata import IFDataFile
-from bds3_tpu.observe.cn0 import channel_health
-from bds3_tpu.pvt.solver import NavSolutions, post_navigation
 from bds3_tpu_torch.acquire.pcps import AcqResults, acquire, make_acq_config
+from bds3_tpu_torch.acquire.resample import plan_resample
+from bds3_tpu_torch.config import FileType, Settings
+from bds3_tpu_torch.io.ifdata import IFDataFile
+from bds3_tpu_torch.observe.cn0 import channel_health
+from bds3_tpu_torch.pvt.solver import NavSolutions, post_navigation
 from bds3_tpu_torch.track.driver import (
     TrackResults,
     as_capture,
@@ -45,22 +46,26 @@ class ReceiverResults:
 
 def check_ported(s: Settings) -> None:
     """NotImplementedError naming what the port does not cover yet in
-    these settings (tracking config, IQ captures, bandpass resampling),
-    before any file is opened or any device is touched."""
+    these settings (complex IQ captures), TypeError for another package's
+    Settings, before any file is opened or any device is touched."""
     require_ported(s)
     if s.file_type == FileType.IQ8:
         raise NotImplementedError("complex IQ captures are not ported yet")
-    if s.resampling and s.sampling_freq > s.resampling_threshold:
-        raise NotImplementedError(
-            "acquisition with bandpass resampling is not ported yet")
 
 
 def acquisition_signal_length(s: Settings) -> int:
     """Samples needed by the acquisition stage (coarse FFT window + fine
-    window, cf. postProcessing.m acq reads)."""
+    window, cf. postProcessing.m acq reads).  With resampling active the
+    requirement is mapped back to the original rate (+ filter margin), as
+    bds3_tpu/receiver.py:41-54 does."""
     if s.resampling and s.sampling_freq > s.resampling_threshold:
-        raise NotImplementedError(
-            "acquisition with bandpass resampling is not ported yet")
+        plan = plan_resample(s)
+        s_low = dataclasses.replace(
+            s, sampling_freq=plan.new_fs, intermediate_freq=plan.new_if,
+            resampling=False)
+        need_low = acquisition_signal_length(s_low)
+        return int(np.ceil((need_low + 2) * plan.old_fs / plan.new_fs)) \
+            + 3 * 701
     cfg = make_acq_config(s)
     return cfg.n_fft + max(cfg.fine_noncoh, 1) * cfg.samples_per_code \
         + cfg.samples_per_code

@@ -18,10 +18,10 @@ import functools
 import numpy as np
 import torch
 
-from bds3_tpu.config import Settings, Signal
-from bds3_tpu.signals.b1c import b1c_data_boc11, b1c_pilot_boc11, b1c_pilot_boc61
-from bds3_tpu.signals.b2a import b2a_data_code, b2a_pilot_code
+from bds3_tpu_torch.config import Settings, Signal
 from bds3_tpu_torch.convert import consts_to_torch, state_to_torch, tables_to_torch
+from bds3_tpu_torch.signals.b1c import b1c_data_boc11, b1c_pilot_boc11, b1c_pilot_boc61
+from bds3_tpu_torch.signals.b2a import b2a_data_code, b2a_pilot_code
 from bds3_tpu_torch.track import fused, prefix
 from bds3_tpu_torch.track.fused import cuda_supported, fused_track_block
 from bds3_tpu_torch.track.scan import (
@@ -148,11 +148,12 @@ BLOCK_FNS = {
 
 def choose_correlator(cfg: TrackConfig, correlator: str = "auto") -> str:
     """The tracking path for `cfg`: "auto" takes the CUDA tracking kernel
-    ("fused") where it takes the config, else the prefix-sum path with its
-    kernel ("bucket_pallas").  The device then picks kernel or plain
-    version, so the CPU runs the path the card runs."""
+    ("fused"), as the reference takes its fused kernel on its chip
+    (bds3_tpu/track/driver.py:211-222); a config the kernel cannot hold
+    raises, it is not sent elsewhere.  The device then picks kernel or
+    plain version, so the CPU runs the path the card runs."""
     if correlator == "auto":
-        return "fused" if cuda_supported(cfg) else "bucket_pallas"
+        correlator = "fused"
     if correlator not in BLOCK_FNS:
         raise ValueError(f"unknown correlator {correlator!r}: expected "
                          f"'auto' or one of {sorted(BLOCK_FNS)}")
@@ -213,13 +214,16 @@ def setup_tracking(capture: torch.Tensor, settings: Settings,
     cfg = require_ported(settings, epochs_per_block)
     dev = capture.device
     consts = channel_consts(cfg, inits, settings)
-    data_t, p11_t, _ = channel_code_tables(cfg, inits)
+    data_t, p11_t, p61_t = channel_code_tables(cfg, inits)
     ck_int, ck_frac = code_coarse_tables(cfg, cfg.m_data)
+    # the BOC(6,1) pilot's coarse tables at m = 12 (driver.py:241-242)
+    ck61 = code_coarse_tables(cfg, cfg.m_p61) if cfg.m_p61 else (None, None)
     cursors0 = np.array([c.code_phase for c in inits], dtype=np.int64)
     state = initial_state(cfg, inits, consts, np.zeros(len(inits)))
     return TrackSetup(
         cfg=cfg, inits=inits, cursors0=cursors0,
-        tables=tables_to_torch(cfg, data_t, p11_t, ck_int, ck_frac, dev),
+        tables=tables_to_torch(cfg, data_t, p11_t, ck_int, ck_frac, dev,
+                               p61_t, *ck61),
         consts=consts_to_torch(consts, dev),
         state=state_to_torch(state, cursors0, dev),
         n_blocks=block_schedule(cfg, consts, cursors0, capture.shape[0],
@@ -259,8 +263,8 @@ def track(
     plain prefixes or with the mix+prefix kernel).  On a CUDA device the
     kernel paths launch their kernels; on the CPU their plain versions run
     instead.  Configurations the port does not cover raise
-    NotImplementedError before any device work: B2a, and B1C data-only
-    and narrowband, on real int8 input are covered.
+    NotImplementedError before any device work: B2a and B1C in every
+    track mode, on real int8 input, are covered.
     """
     cfg = require_ported(settings, epochs_per_block)
     correlator = choose_correlator(cfg, correlator)

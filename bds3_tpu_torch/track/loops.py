@@ -3,9 +3,8 @@
 Parity with `Common/calcLoopCoef.m:40-45` (2nd-order DLL) and
 `Common/calcLoopCoefCarr.m:47-56` (3rd-order PLL).
 
-Host-numpy copy of `bds3_tpu/track/loops.py`: importing the original
-runs `bds3_tpu/track/__init__.py`, which imports JAX.  This copy goes
-away once that package init is made lazy.
+Host-numpy copy of `bds3_tpu/track/loops.py`: the port imports nothing of
+the JAX package and keeps its own copy of every host module it uses.
 """
 from __future__ import annotations
 

@@ -18,9 +18,12 @@ Python loop over the epochs:
   `prefix.mix_prefix`, the wrapper of `csrc/mix_prefix.cu` (the
   `bucket_pallas` path, `scan.py:378-405`).
 
-Both end in `_finish_epoch`: the discriminators of B2a and of B1C
-data-only and narrowband (`scan.py:215-242`), the 3rd-order PLL and
-2nd-order DLL, and the phase remainders (`scan.py:298-320`).
+Both end in `_finish_epoch`: the discriminators of B2a and of B1C in
+every track mode, with the wideband QMBOC composite pilot and its four
+code blends (`scan.py:215-296`), the 3rd-order PLL and 2nd-order DLL, and
+the phase remainders (`scan.py:298-320`).  B1C wideband adds a third tap,
+the BOC(6,1) pilot at 12 table entries per chip, with its own coarse
+code-phase table and, in the bucket path, its own chip boundaries.
 
 Samples are read at `cursor + j` straight from the capture: the cursor is
 an absolute int64 sample index, so neither the reference's per-block
@@ -45,7 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bds3_tpu.config import Signal, TrackMode
+from bds3_tpu_torch.config import Signal
 from bds3_tpu_torch.track.prefix import (
     buffers as prefix_buffers,
     mix_prefix,
@@ -77,6 +80,10 @@ class TrackTables(NamedTuple):
     code: torch.Tensor     # (C, taps, L*m + 2*CODE_PAD) int8; tap 0 data, 1 pilot
     ck_int: torch.Tensor   # (k_max,) int32 coarse code-phase table
     ck_frac: torch.Tensor  # (k_max,) float32
+    # B1C wideband only: the BOC(6,1) pilot at m_p61 = 12 entries per chip
+    code61: torch.Tensor | None = None     # (C, L*12 + 2*CODE_PAD) int8
+    ck61_int: torch.Tensor | None = None   # (k_max,) int32, at m = 12
+    ck61_frac: torch.Tensor | None = None  # (k_max,) float32
 
 
 def output_names(cfg: TrackConfig) -> list[str]:
@@ -98,14 +105,10 @@ def slot_names(cfg: TrackConfig) -> list[str]:
 
 
 def reference_supported(cfg: TrackConfig) -> bool:
-    """Configs this module implements, on real input: B2a in every track
-    mode (WIDEBAND is data+pilot on B2a, as in the reference), and B1C
-    data-only or narrowband."""
-    if cfg.complex_input:
-        return False
-    if cfg.signal == Signal.B2A:
-        return True
-    return cfg.mode in (TrackMode.DATA_ONLY, TrackMode.NARROWBAND)
+    """Configs this module implements: B2a and B1C in every track mode
+    (WIDEBAND is data+pilot on B2a, as in the reference, and the QMBOC
+    composite pilot on B1C), on real input."""
+    return not cfg.complex_input
 
 
 def describe(cfg: TrackConfig) -> str:
@@ -117,21 +120,32 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def _boundary_constants(cfg: TrackConfig, m: int, sfx: str) -> dict:
+    """step*m and the bucket boundaries' 1/(step*m), split into int and
+    fraction on the host in float64 (scan.py:174-180), for a table of m
+    entries per chip; the keys end in `sfx`."""
+    inv0 = 1.0 / (cfg.step_base * m)
+    inv0_int = int(np.floor(inv0))
+    return {f"sm{sfx}": _f32(cfg.step_base * m),
+            f"inv0_int{sfx}": inv0_int,
+            f"inv0_int_f{sfx}": _f32(inv0_int),
+            f"inv0_frac{sfx}": _f32(inv0 - inv0_int)}
+
+
 @functools.lru_cache(maxsize=None)
 def loop_constants(cfg: TrackConfig) -> dict:
     """The float32 constants of one epoch, as Python floats that are exact
-    float32 values; the kernel's parameter block carries the same ones."""
+    float32 values; the kernel's parameter block carries the same ones.
+    Where the reference writes a constant as a Python expression (1 - f,
+    g61, W11), it is formed in float64 and cast once, as JAX casts it."""
     one = np.float32(1.0)
-    inv0 = 1.0 / (cfg.step_base * cfg.m_data)   # host f64 (scan.py:175-177)
-    inv0_int = int(np.floor(inv0))
-    return dict(
+    k = dict(
         step_base=_f32(cfg.step_base),
         inv_step_base=float(one / np.float32(cfg.step_base)),
         inv_fs=float(one / np.float32(cfg.fs)),
         q0_frac=_f32(cfg.q0_frac),
         q0_sum=_f32(cfg.q0_int + cfg.q0_frac),
         q0_step_minus_l=_f32(cfg.q0_int * cfg.step_base - cfg.code_length),
-        sm=_f32(cfg.step_base * cfg.m_data),
         spacing=_f32(cfg.spacing),
         inv2pi=_f32(1.0 / (2.0 * np.pi)),
         two_pi=_f32(2.0 * np.pi),
@@ -143,11 +157,22 @@ def loop_constants(cfg: TrackConfig) -> dict:
         # B1C: E-L slope normalisation and the 11/29 blend (scan.py:225-242)
         one_minus_spacing=_f32(1.0 - cfg.spacing),
         inv40=float(one / np.float32(40.0)),
-        # bucket boundaries: 1/(step*m) split into int and fraction
-        inv0_int=inv0_int,
-        inv0_int_f=_f32(inv0_int),
-        inv0_frac=_f32(inv0 - inv0_int),
+        # B1C wideband (scan.py:243-296): the composite pilot's weights,
+        # the BOC(6,1) bank's spacing, the data/pilot DLL factor, and the
+        # "split" blend's BOC(6,1) slope normalisation
+        w11=_f32(W11),
+        w61=_f32(W61),
+        spacing61=_f32(cfg.spacing61 if cfg.wb_code_blend == "split"
+                       else cfg.spacing),
+        dll_f=_f32(cfg.dll_factor),
+        one_minus_dll_f=_f32(1.0 - cfg.dll_factor),
+        g61=_f32(3.0 * (1.0 - cfg.spacing) * (1.0 - 23.0 * cfg.spacing61)
+                 / (23.0 * (1.0 - 3.0 * cfg.spacing))),
+        **_boundary_constants(cfg, cfg.m_data, ""),
     )
+    if cfg.wideband:
+        k.update(_boundary_constants(cfg, cfg.m_p61, "61"))
+    return k
 
 
 def _eml(ie, qe, il, ql):
@@ -162,11 +187,30 @@ def _check_supported(cfg: TrackConfig) -> None:
             f"tracking for {describe(cfg)} is not ported yet")
 
 
-def _taps(cfg: TrackConfig, tables: TrackTables) -> list:
-    taps = [("d", tables.code[:, 0])]
-    if cfg.use_pilot:
-        taps.append(("p11", tables.code[:, 1]))
-    return taps
+class _Bank(NamedTuple):
+    """Taps that share one chip grid: m table entries per chip, the same
+    E/P/L offsets and the same coarse tables."""
+
+    names: tuple           # tap names, "d" "p11" or "p61"
+    tables: torch.Tensor   # (C, taps, L*m + 2*CODE_PAD) int8
+    m: int
+    spacing: float         # E/L offset [chips]
+    ck_int: torch.Tensor   # (k_max,) int32
+    ck_frac: torch.Tensor  # (k_max,) float32
+    sfx: str               # suffix of its loop_constants keys
+
+
+def _banks(cfg: TrackConfig, k: dict, tables: TrackTables) -> list[_Bank]:
+    names = ("d", "p11") if cfg.use_pilot else ("d",)
+    banks = [_Bank(names, tables.code, cfg.m_data, k["spacing"],
+                   tables.ck_int, tables.ck_frac, "")]
+    if cfg.wideband:
+        # "split" runs the BOC(6,1) bank at its own narrow spacing
+        # (scan.py:207-210)
+        banks.append(_Bank(("p61",), tables.code61[:, None], cfg.m_p61,
+                           k["spacing61"], tables.ck61_int, tables.ck61_frac,
+                           "61"))
+    return banks
 
 
 def _blksize(cfg: TrackConfig, k: dict, rem_code, d_step):
@@ -212,6 +256,37 @@ def _mix(k: dict, capture, grid: _SampleGrid, a_base, cursor, blksize,
     return x * torch.cos(ang), -(x * torch.sin(ang))
 
 
+def _wideband_errors(cfg: TrackConfig, k: dict, out: dict, code_d, carr_d):
+    """The B1C wideband QMBOC composite pilot and its code blends
+    (scan.py:243-296); adds the composite correlators p_* to `out`."""
+    for x in ("e", "p", "l"):
+        out[f"p_i{x}"] = -k["w61"] * out[f"p61_i{x}"] \
+            + k["w11"] * out[f"p11_q{x}"]
+        out[f"p_q{x}"] = -k["w61"] * out[f"p61_q{x}"] \
+            - k["w11"] * out[f"p11_i{x}"]
+    carr_p = torch.atan(out["p_qp"] / out["p_ip"]) * k["inv2pi"]
+    carr_err = (carr_d + 3.0 * carr_p) * 0.25
+    blend = cfg.wb_code_blend
+    if blend in ("nb", "split"):
+        code_p11 = _eml(out["p11_ie"], out["p11_qe"], out["p11_il"],
+                        out["p11_ql"]) * k["one_minus_spacing"]
+    if blend == "nb":
+        return carr_err, (code_d * 11.0 + code_p11 * 29.0) * k["inv40"]
+    if blend == "split":
+        code_p61 = _eml(out["p61_ie"], out["p61_qe"], out["p61_il"],
+                        out["p61_ql"]) * k["g61"]
+        code_p = 0.3 * code_p11 + 0.7 * code_p61
+    elif blend == "dotprod":
+        dp_num = (out["p_ie"] - out["p_il"]) * out["p_ip"] \
+            + (out["p_qe"] - out["p_ql"]) * out["p_qp"]
+        dp_den = out["p_ip"] * out["p_ip"] + out["p_qp"] * out["p_qp"]
+        code_p = 0.25 * dp_num / dp_den * k["one_minus_spacing"]
+    else:
+        code_p = _eml(out["p_ie"], out["p_qe"], out["p_il"],
+                      out["p_ql"]) * k["one_minus_spacing"]
+    return carr_err, code_d * k["dll_f"] + code_p * k["one_minus_dll_f"]
+
+
 def _finish_epoch(cfg: TrackConfig, k: dict, consts, out: dict, st: tuple,
                   delta, blksize) -> tuple:
     """Discriminators, loop filters and phase remainders of one epoch from
@@ -220,7 +295,7 @@ def _finish_epoch(cfg: TrackConfig, k: dict, consts, out: dict, st: tuple,
     (rem_code, rem_cyc, d_cyc, d_step,
      code_nco, code_error, d1_carr, d2_carr) = st
 
-    # --- discriminators (scan.py:223-242) --------------------------------
+    # --- discriminators (scan.py:223-296) --------------------------------
     carr_d = torch.atan(out["d_qp"] / out["d_ip"]) * k["inv2pi"]
     code_d = _eml(out["d_ie"], out["d_qe"], out["d_il"], out["d_ql"])
     b1c = cfg.signal == Signal.B1C
@@ -228,6 +303,8 @@ def _finish_epoch(cfg: TrackConfig, k: dict, consts, out: dict, st: tuple,
         code_d = code_d * k["one_minus_spacing"]   # WB_tracking.m:409-410
     if not cfg.use_pilot:
         carr_err, code_err = carr_d, code_d
+    elif cfg.wideband:
+        carr_err, code_err = _wideband_errors(cfg, k, out, code_d, carr_d)
     else:
         # pilot pi/2 ahead of data; rotate back (tracking.m:341-353)
         carr_p = torch.atan(-out["p11_ip"] / out["p11_qp"]) * k["inv2pi"]
@@ -274,6 +351,12 @@ def _finish_epoch(cfg: TrackConfig, k: dict, consts, out: dict, st: tuple,
     return new
 
 
+def _sum_rounded(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of float32 products, summed in float64 and rounded once,
+    as the CUDA kernel's compensated sums are (track_fused.cu)."""
+    return x.sum(1, dtype=torch.float64).to(torch.float32)
+
+
 def track_block_reference(cfg: TrackConfig, capture: torch.Tensor,
                           tables: TrackTables, consts, state: TrackState
                           ) -> tuple[TrackState, torch.Tensor]:
@@ -285,14 +368,10 @@ def track_block_reference(cfg: TrackConfig, capture: torch.Tensor,
     """
     _check_supported(cfg)
     k = loop_constants(cfg)
-    m = cfg.m_data
-    lm = cfg.code_length * m
     grid = _sample_grid(cfg, consts)
-    ck_int = tables.ck_int[grid.k_idx].to(torch.int64)
-    ck_frac = tables.ck_frac[grid.k_idx]
-    rsm = grid.r_f * k["sm"]
-    taps = _taps(cfg, tables)
-    spc = k["spacing"]
+    # per bank: (bank, coarse int (n,) int64, coarse frac (n,), r_f * sm)
+    banks = [(b, b.ck_int[grid.k_idx].to(torch.int64), b.ck_frac[grid.k_idx],
+              grid.r_f * k[f"sm{b.sfx}"]) for b in _banks(cfg, k, tables)]
     names = slot_names(cfg)
 
     cursor = state.cursor.clone()
@@ -306,16 +385,21 @@ def track_block_reference(cfg: TrackConfig, capture: torch.Tensor,
 
         # --- E/P/L correlators (scan.py:76-89, 162-168) -----------------
         out = {}
-        jd = grid.j_f * (d_step * m)[:, None]
-        for tap_name, table in taps:
-            for tn, off in (("e", -spc), ("p", 0.0), ("l", spc)):
+        for bank, ck_int, ck_frac, rsm in banks:
+            m = bank.m
+            lm = cfg.code_length * m
+            jd = grid.j_f * (d_step * m)[:, None]
+            for tn, off in (("e", -bank.spacing), ("p", 0.0),
+                            ("l", bank.spacing)):
                 base = rem_code + off
                 frac = (base * m)[:, None] + ck_frac + rsm + jd
                 idx = ck_int + torch.ceil(frac).to(torch.int64) - 1
                 idx = torch.remainder(idx, lm)
-                cv = table.gather(1, idx + CODE_PAD).to(torch.float32)
-                out[f"{tap_name}_i{tn}"] = (cv * i_bb).sum(1)
-                out[f"{tap_name}_q{tn}"] = (cv * q_bb).sum(1)
+                for t, tap_name in enumerate(bank.names):
+                    cv = bank.tables[:, t].gather(1, idx + CODE_PAD) \
+                        .to(torch.float32)
+                    out[f"{tap_name}_i{tn}"] = _sum_rounded(cv * i_bb)
+                    out[f"{tap_name}_q{tn}"] = _sum_rounded(cv * q_bb)
 
         st = _finish_epoch(cfg, k, consts, out, st, delta, blksize)
         cursor = cursor + blksize
@@ -372,36 +456,74 @@ def pallas_prefix(cfg: TrackConfig, capture: torch.Tensor, consts,
     return prefix
 
 
+class _BucketGrid(NamedTuple):
+    """A bank's chip boundaries k in [-CODE_PAD, L*m + CODE_PAD], with the
+    parts of j_k that do not change between epochs."""
+
+    bank: _Bank
+    cv: torch.Tensor       # (C, taps, K) float32 chip tables
+    offs: torch.Tensor     # (3,) float32 E/P/L offsets [chips]
+    k_f: torch.Tensor      # (K+1,) float32 k
+    kj: torch.Tensor       # (K+1,) int64 k * inv0_int
+    kfrac: torch.Tensor    # (K+1,) float32 k * inv0_frac
+
+
+def _bucket_grid(cfg: TrackConfig, k: dict, bank: _Bank, dev) -> _BucketGrid:
+    lm = cfg.code_length * bank.m
+    k_i = torch.arange(-CODE_PAD, lm + CODE_PAD + 1, device=dev)
+    k_f = k_i.to(torch.float32)
+    return _BucketGrid(
+        bank, bank.tables.to(torch.float32),
+        torch.tensor([-bank.spacing, 0.0, bank.spacing], dtype=torch.float32,
+                     device=dev),
+        k_f, k_i * k[f"inv0_int{bank.sfx}"], k_f * k[f"inv0_frac{bank.sfx}"])
+
+
+def _bucket_sums(k: dict, g: _BucketGrid, n: int, rem_code, d_step,
+                 p_i, p_q, out: dict) -> None:
+    """One bank's correlators from the epoch's prefixes (scan.py:170-196)
+    into `out`.  The sum over the samples of chip bucket k, j in
+    ((k - base*m)/sm, (k+1 - base*m)/sm], is P[j_{k+1}] - P[j_k]; the
+    boundaries j_k depend only on m, the tap offset and d_step, so the taps
+    of a bank share them, and one gather of P serves all its correlators
+    of a component (I or Q)."""
+    m, sfx = g.bank.m, g.bank.sfx
+    # --- chip boundaries j_k (scan.py:174-185), (C, 3, K+1) --------------
+    smm = k[f"sm{sfx}"] + d_step * m
+    inv = 1.0 / smm
+    dinv = inv - k[f"inv0_int_f{sfx}"] - k[f"inv0_frac{sfx}"]
+    base = rem_code[:, None] + g.offs[None, :]                # (C, 3)
+    frac_part = g.kfrac + g.k_f * dinv[:, None, None] \
+        - ((base * m) * inv[:, None])[:, :, None]
+    j_k = g.kj + torch.floor(frac_part).to(torch.int64) + 1
+    iw = j_k.clamp(0, n).reshape(j_k.shape[0], -1)
+    # --- bucket sums and the dot with the tables (scan.py:186-196) -------
+    gi = p_i.gather(1, iw).reshape(j_k.shape)
+    gq = p_q.gather(1, iw).reshape(j_k.shape)
+    bi = (gi[..., 1:] - gi[..., :-1])[:, None]                # (C, 1, 3, K)
+    bq = (gq[..., 1:] - gq[..., :-1])[:, None]
+    ci = (g.cv[:, :, None] * bi).sum(-1)                      # (C, taps, 3)
+    cq = (g.cv[:, :, None] * bq).sum(-1)
+    for t, tap_name in enumerate(g.bank.names):
+        for e, tn in enumerate(("e", "p", "l")):
+            out[f"{tap_name}_i{tn}"] = ci[:, t, e]
+            out[f"{tap_name}_q{tn}"] = cq[:, t, e]
+
+
 def track_block_bucket(cfg: TrackConfig, capture: torch.Tensor,
                        tables: TrackTables, consts, state: TrackState,
                        prefix_fn=bucket_prefix
                        ) -> tuple[TrackState, torch.Tensor]:
     """Run cfg.epochs_per_block epochs for all channels with the prefix-sum
     correlator (scan.py:170-196); arguments and result as
-    track_block_reference.
-
-    The sum over the samples of chip bucket k, j in
-    ((k - base*m)/sm, (k+1 - base*m)/sm], is P[j_{k+1}] - P[j_k]; the
-    boundaries j_k depend only on m, the tap offset and d_step, so the data
-    and pilot taps share them, and one gather of P serves all six
-    correlators of a component (I or Q).
-    """
+    track_block_reference.  B1C wideband's BOC(6,1) bank takes the same
+    prefixes on its own boundary grid at m = 12."""
     _check_supported(cfg)
     k = loop_constants(cfg)
-    m = cfg.m_data
-    lm = cfg.code_length * m
     n = cfg.n_max
-    dev = capture.device
     prefix = prefix_fn(cfg, capture, consts)
-    taps = _taps(cfg, tables)
-    # (C, taps, K) chip tables
-    cv = torch.stack([t for _, t in taps], 1).to(torch.float32)
-    spc = k["spacing"]
-    offs = torch.tensor([-spc, 0.0, spc], dtype=torch.float32, device=dev)
-    k_i = torch.arange(-CODE_PAD, lm + CODE_PAD + 1, device=dev)
-    k_f = k_i.to(torch.float32)
-    kj = k_i * k["inv0_int"]
-    kfrac = k_f * k["inv0_frac"]
+    grids = [_bucket_grid(cfg, k, b, capture.device)
+             for b in _banks(cfg, k, tables)]
     names = slot_names(cfg)
 
     cursor = state.cursor.clone()
@@ -411,29 +533,9 @@ def track_block_bucket(cfg: TrackConfig, capture: torch.Tensor,
         rem_code, rem_cyc, d_cyc, d_step = st[:4]
         delta, blksize = _blksize(cfg, k, rem_code, d_step)
         p_i, p_q = prefix(cursor, blksize, rem_cyc, d_cyc)
-
-        # --- chip boundaries j_k (scan.py:174-185), (C, 3, K+1) ----------
-        smm = k["sm"] + d_step * m
-        inv = 1.0 / smm
-        dinv = inv - k["inv0_int_f"] - k["inv0_frac"]
-        base = rem_code[:, None] + offs[None, :]              # (C, 3)
-        frac_part = kfrac + k_f * dinv[:, None, None] \
-            - ((base * m) * inv[:, None])[:, :, None]
-        j_k = kj + torch.floor(frac_part).to(torch.int64) + 1
-        iw = j_k.clamp(0, n).reshape(j_k.shape[0], -1)
-        # --- bucket sums and the dot with the tables (scan.py:186-196) ---
-        gi = p_i.gather(1, iw).reshape(j_k.shape)
-        gq = p_q.gather(1, iw).reshape(j_k.shape)
-        bi = (gi[..., 1:] - gi[..., :-1])[:, None]            # (C, 1, 3, K)
-        bq = (gq[..., 1:] - gq[..., :-1])[:, None]
-        ci = (cv[:, :, None] * bi).sum(-1)                    # (C, taps, 3)
-        cq = (cv[:, :, None] * bq).sum(-1)
         out = {}
-        for t, (tap_name, _) in enumerate(taps):
-            for e, tn in enumerate(("e", "p", "l")):
-                out[f"{tap_name}_i{tn}"] = ci[:, t, e]
-                out[f"{tap_name}_q{tn}"] = cq[:, t, e]
-
+        for g in grids:
+            _bucket_sums(k, g, n, rem_code, d_step, p_i, p_q, out)
         st = _finish_epoch(cfg, k, consts, out, st, delta, blksize)
         cursor = cursor + blksize
         rows.append(torch.stack([out[name] for name in names], dim=-1))

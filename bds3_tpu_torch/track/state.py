@@ -12,10 +12,10 @@ phases that accumulate over millions of samples.  NCO frequencies are
 stored as small f32 *deltas* from per-channel f64 bases (an f32 absolute
 carrier frequency would quantize to ~1 Hz).
 
-Host-numpy copy of `bds3_tpu/track/state.py`: importing the original
-runs `bds3_tpu/track/__init__.py`, which imports JAX.  This copy goes
-away once that package init is made lazy.  The port keeps these numpy
-types on the host; `bds3_tpu_torch.convert` turns them into tensors.
+Host-numpy copy of `bds3_tpu/track/state.py`: the port imports nothing
+of the JAX package, so it keeps its own copy of every host module it
+uses.  The port keeps these numpy types on the host;
+`bds3_tpu_torch.convert` turns them into tensors.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from bds3_tpu.config import Settings, Signal, TrackMode
+from bds3_tpu_torch.config import Settings, Signal, TrackMode
 from bds3_tpu_torch.track.loops import dll_coefficients, pll_coefficients
 from bds3_tpu_torch.track.weighting import wb_dll_weight
 
@@ -128,9 +128,22 @@ def assign_channels(acq, settings: Settings) -> list[ChannelInit]:
     return out
 
 
+def check_settings(s) -> None:
+    """TypeError unless `s` is this package's Settings.  Another package's
+    Settings (the JAX package's) has enums of another class: its
+    Signal.B2A is not this package's, and would silently take the B1C
+    branches here.  Convert it with convert.settings_from_reference."""
+    if not isinstance(s, Settings):
+        raise TypeError(
+            f"expected bds3_tpu_torch.config.Settings, got "
+            f"{type(s).__module__}.{type(s).__qualname__}: convert it with "
+            "bds3_tpu_torch.convert.settings_from_reference")
+
+
 def make_track_config(s: Settings, complex_input: bool = False,
                       epochs_per_block: int = 100,
                       correlator: str = "bucket") -> TrackConfig:
+    check_settings(s)
     if s.signal == Signal.B2A:
         m_data, m_p61 = 1, 0
     else:

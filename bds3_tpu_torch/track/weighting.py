@@ -4,9 +4,8 @@ Parity with `BDS-3_B1C/include/CalcWeighingFactor.m:42-81`: the combining
 factor is data_power*RMS_BW^2 weighted by the 11/33 power split, with PSDs
 integrated over the front-end bandwidth.
 
-Host-numpy copy of `bds3_tpu/track/weighting.py`: importing the original
-runs `bds3_tpu/track/__init__.py`, which imports JAX.  This copy goes
-away once that package init is made lazy.
+Host-numpy copy of `bds3_tpu/track/weighting.py`: the port imports nothing of
+the JAX package and keeps its own copy of every host module it uses.
 """
 from __future__ import annotations
 

@@ -35,26 +35,44 @@ port's main path through its public entry points:
              |a|.mean()+1 of the same path through the kernel's plain
              version, and within 2e-2 of the plain bucket path (another
              rounding of the carrier phase).
-  7. B1C     99.375 Msps narrowband, 10 channels over 4 satellites,
-             200 epochs through track(): "auto" must launch the mix+prefix
-             kernel and lock 10/10; real-time factor beside the plain
-             bucket path's.  Then run_receiver on the 6 Msps, 26 s,
-             5-satellite B1C scenario (seeds 5 and 2): 5 channels, the
-             kernel launched, >= 4 ephemerides with the true m_0, >= 10
-             fixes with a median 3D error < 2 m; then one 20-epoch
-             bucket_pallas block at these shapes against the same path
-             with the kernel's plain version (as in 6).
+  7. B1C kernel  fused_track_block against track_block_reference at the
+             B1C preset's rate (99.375 Msps), 10 channels over the 4
+             satellites, one 20-epoch block: narrowband, and wideband in
+             each code blend (composite, nb, split, dotprod).  blksize and
+             cursors equal, correlators (with the BOC(6,1) and composite
+             pilot) within 1e-3 of |a|.mean()+1; kernel and plain block
+             times and the kernel's bound.
+  8. B1C acquisition  b1c_settings() (resampled) over PRNs 1-63 on the
+             2.2 s 99.375 Msps capture: exactly the 4 satellites; the
+             card's resampler within 5e-3 of the host scipy filter in
+             the interior.
+  9. B1C tracking  the preset (wideband, composite), 10 channels,
+             200 epochs through track() "auto": K1 launched, 10/10
+             locked, real-time factor.  Narrowband through "auto" (K1),
+             "bucket_pallas" (the mix+prefix kernel) and plain "bucket":
+             10/10 locked in each.
+ 10. B1C receivers  run_receiver on the 6 Msps, 26 s, 5-satellite
+             narrowband scenario (seeds 5 and 2), then on the bench's
+             wideband one (33.125 Msps, IF fs/4, 26 s, "split" blend,
+             resampled acquisition; the capture rendered on the card):
+             5 channels, K1 launched, >= 4 ephemerides with the true m_0,
+             >= 10 fixes with a median 3D error < 2 m; then one 20-epoch
+             block at their shapes, K1 against its plain version, and for
+             narrowband also bucket_pallas against the same path with
+             the mix+prefix kernel's plain version (as in 6).
 
 With `--profile` it runs only the build and then torch.profiler over
 short runs of the tracking cells (see phase_profile), one JSON line each,
 and prints no kernel table.
 
 Each phase prints one JSON line.  Then come the kernel table
-({"kernels": [...]}), the card's `nvidia-smi` name and power limit, and
-last {"ok": true, "device": {...}}.  Any failure exits non-zero without
-that last line; so does a machine without a usable CUDA device.  Captures
-are synthesized in background processes while the card works, and cached
-under bds3_tpu_torch/_build/captures.
+({"kernels": [...]}, each kernel's launches counted from 0 over its
+path's run), the card's `nvidia-smi` name and power limit, and last
+{"ok": true, "device": {...}}.  Any failure exits non-zero without that
+last line; so does a machine without a usable CUDA device.  Captures are
+synthesized in background processes while the card works, and cached
+under bds3_tpu_torch/_build/captures; the 33.125 Msps wideband one is
+rendered on the card.  Nothing here imports JAX or the JAX package.
 """
 from __future__ import annotations
 
@@ -82,7 +100,7 @@ CAPTURE_KINDS = ("e2e", "full", "b1c_full", "b1c_e2e")
 
 
 def e2e_settings():
-    from bds3_tpu.config import b2a_settings
+    from bds3_tpu_torch.config import b2a_settings
 
     return b2a_settings(
         sampling_freq=20e6, intermediate_freq=5e6, ms_to_process=11_500,
@@ -91,20 +109,20 @@ def e2e_settings():
 
 
 def full_settings():
-    from bds3_tpu.config import b2a_settings
+    from bds3_tpu_torch.config import b2a_settings
 
     return b2a_settings()
 
 
 def b1c_full_settings():
-    from bds3_tpu.config import TrackMode, b1c_settings
+    from bds3_tpu_torch.config import TrackMode, b1c_settings
 
     return b1c_settings(track_mode=TrackMode.NARROWBAND, resampling=False)
 
 
 def b1c_e2e_settings():
     """tests/test_e2e_b1c.py:21-33."""
-    from bds3_tpu.config import TrackMode, b1c_settings
+    from bds3_tpu_torch.config import TrackMode, b1c_settings
 
     return b1c_settings(
         sampling_freq=6e6, intermediate_freq=1.5e6, ms_to_process=26_000,
@@ -114,14 +132,128 @@ def b1c_e2e_settings():
 
 
 def b1c_scenario():
-    from bds3_tpu.io.scenario import make_scenario
+    from bds3_tpu_torch.io.scenario import make_scenario
 
     return make_scenario(b1c_e2e_settings(), RX_TRUTH, n_sats=5,
                          sow_base=3600.0 * 3, seed=5)
 
 
+def b1c_preset_settings(**overrides):
+    """The B1C preset: 99.375 Msps, 10 channels, WIDEBAND, composite code
+    blend, resampled acquisition (bds3_tpu_torch/config.py:153-184)."""
+    from bds3_tpu_torch.config import b1c_settings
+
+    return b1c_settings(**overrides)
+
+
+def b1c_wb_e2e_settings():
+    """bench.py:383-431: 33.125 Msps, IF fs/4, 26 s, 5 channels, wideband
+    with the "split" code blend, resampled acquisition (the preset's)."""
+    fs = 99.375e6 / 3
+    return b1c_preset_settings(
+        sampling_freq=fs, intermediate_freq=fs / 4, ms_to_process=26_000,
+        use_tropo_corr=False, acq_satellite_list=tuple(range(1, 7)),
+        num_channels=5, wb_code_blend="split")
+
+
+def b1c_wb_scenario():
+    from bds3_tpu_torch.io.scenario import make_scenario
+
+    return make_scenario(b1c_wb_e2e_settings(), RX_TRUTH, n_sats=5,
+                         sow_base=3600.0 * 3, seed=5)
+
+
+def synthesize_scenario_on(sc, device, noise_std=2.0, amplitude=1.3, seed=0,
+                           chunk=1 << 24):
+    """synthesize_scenario (bds3_tpu_torch/io/scenario.py) for a B1C
+    scenario, computed in float64 on `device`: the same geometry, codes,
+    overlays and power split, rendered chunk by chunk (the host takes
+    some twenty CPU-minutes for the 26 s, 33.125 Msps capture).  Without
+    noise it equals the host's capture sample for sample; the noise comes
+    from a torch generator seeded with `seed`, so with noise it is another
+    draw of the same distribution.  Returns the int8 capture as a tensor
+    on `device`."""
+    import math
+
+    import torch
+
+    from bds3_tpu_torch.io import scenario as scn
+    from bds3_tpu_torch.signals import (
+        b1c_data_boc11, b1c_pilot_boc11, b1c_pilot_boc61, b1c_secondary_code)
+
+    s = sc.settings
+    fs, L, f_rf = s.sampling_freq, s.code_length, s.carr_freq_basis
+    n_ms = s.ms_to_process
+    n = int(round(n_ms * 1e-3 * fs))
+    grid_dt = 0.01
+    t_grid = np.arange(0.0, n_ms * 1e-3 + 3 * grid_dt, grid_dt)
+
+    def dev64(x):
+        return torch.as_tensor(np.asarray(x, np.float64), device=device)
+
+    t_grid_d = dev64(t_grid)
+    sats = []
+    for eph, (a0, a1) in zip(sc.ephemerides, sc.sat_clock):
+        tau_g = scn._delay_grid(sc, eph, t_grid)
+        overlay = scn._nav_symbol_lookup(sc, eph)
+        sec = b1c_secondary_code(eph.prn).astype(np.float64)
+        # every code period the capture can reach, with a margin; the
+        # overlays become per-period tables on the device
+        t_sv = sc.sow_base + np.array([0.0, n / fs]) \
+            - np.array([tau_g.max(), tau_g.min()])
+        t_sv = t_sv + a0 + a1 * (t_sv - eph.t_oc)
+        p0 = int(np.floor(t_sv[0] * s.code_freq_basis / L)) - 2
+        periods = np.arange(
+            p0, int(np.ceil(t_sv[1] * s.code_freq_basis / L)) + 3)
+        pilot_ovl = -sec[periods % len(sec)]
+        comps = [
+            (b1c_data_boc11(eph.prn), 2, overlay(periods), 0.0,
+             amplitude * math.sqrt(11.0 / 44.0)),
+            (b1c_pilot_boc11(eph.prn), 2, pilot_ovl, math.pi / 2,
+             amplitude * math.sqrt(29.0 / 44.0)),
+            (b1c_pilot_boc61(eph.prn), 12, pilot_ovl, 0.0,
+             amplitude * math.sqrt(4.0 / 44.0)),
+        ]
+        sats.append((eph, a0, a1, dev64(tau_g), p0,
+                     [(dev64(w), m, dev64(o), psi, amp)
+                      for w, m, o, psi, amp in comps]))
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = torch.empty(n, dtype=torch.int8, device=device)
+    for start in range(0, n, chunk):
+        stop = min(start + chunk, n)
+        t = torch.arange(start, stop, dtype=torch.float64,
+                         device=device) / fs
+        acc = torch.zeros(stop - start, dtype=torch.float64, device=device)
+        for eph, a0, a1, tau_g, p0, comps in sats:
+            # np.interp on the uniform grid t_grid
+            i = torch.floor(t / grid_dt).to(torch.int64) \
+                .clamp(0, len(t_grid) - 2)
+            tau = tau_g[i] + (t - t_grid_d[i]) / grid_dt \
+                * (tau_g[i + 1] - tau_g[i])
+            u = sc.sow_base + t - tau
+            dt_sv = a0 + a1 * (u - eph.t_oc)
+            chips = (u + dt_sv) * s.code_freq_basis
+            period = torch.floor(chips / L).to(torch.int64) - p0
+            theta = 2 * np.pi * (s.intermediate_freq * t
+                                 - f_rf * (tau - dt_sv))
+            for wave, m, ovl, psi, amp in comps:
+                entry = torch.remainder(
+                    torch.floor(chips * m).to(torch.int64), L * m)
+                acc += amp * (wave[entry] * ovl[period]) \
+                    * torch.cos(theta + psi)
+        if noise_std > 0:
+            acc += noise_std * torch.randn(stop - start, generator=gen,
+                                           dtype=torch.float64,
+                                           device=device)
+        out[start:stop] = torch.clamp(torch.round(acc), -128, 127) \
+            .to(torch.int8)
+    return out
+
+
 def sat_params(sats, amplitude=0.65):
-    from bds3_tpu.io import SatParams
+    from bds3_tpu_torch.io import SatParams
 
     return [SatParams(prn=p, doppler_hz=fd, code_phase_chips=cp,
                       amplitude=amplitude) for p, fd, cp in sats]
@@ -146,8 +278,8 @@ def make_inits(s, sats, n_channels):
 def _synth_job(kind: str, path: str) -> None:
     """Background process: synthesize one capture into `path` (.npy)."""
     sys.path.insert(0, REPO)
-    from bds3_tpu.io import synthesize_if
-    from bds3_tpu.io.scenario import make_scenario, synthesize_scenario
+    from bds3_tpu_torch.io import synthesize_if
+    from bds3_tpu_torch.io.scenario import make_scenario, synthesize_scenario
 
     if kind == "e2e":
         sc = make_scenario(e2e_settings(), RX_TRUTH, n_sats=5, seed=3)
@@ -241,7 +373,7 @@ def compare_block(cfg, capture, setup, label: str, kernel: str = "fused",
         raise AssertionError(f"{label}: cursors differ")
     # same sums in another order: correlators and discriminators agree
     # within tol of |a|.mean() + 1 (test_pallas_fused.py:71's scale)
-    checked = [n for n in r if n.startswith(("d_", "p11_"))] \
+    checked = [n for n in r if n.startswith(("d_", "p11_", "p61_", "p_"))] \
         + ["carr_err", "code_err"]
     abs_err = {n: float(np.abs(k[n] - r[n]).max()) for n in checked}
     scaled = {n: abs_err[n] / (float(np.abs(r[n]).mean()) + 1.0)
@@ -279,6 +411,46 @@ def time_block(fn, setup, capture, reps: int) -> float:
                                 setup.consts, setup.state), reps)
 
 
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): FP32 outside
+# the tensor cores, and HBM3 bandwidth
+FP32_PEAK = 67e12     # operations per second
+HBM_PEAK = 3.35e12    # bytes per second
+
+
+def roofline_ms(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take for `ops` float32 operations
+    moving `nbytes` bytes: the larger of the two bounds, and which."""
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_PEAK
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def track_fused_bound(cfg, blksize: np.ndarray, span: int) -> dict:
+    """K1's bound for one launch whose epochs had these lengths
+    (blksize (W, C)) and whose channels read `span` capture bytes.
+    Operations per sample: the carrier (2 multiplies and 3 adds for the
+    phase, its mod, the angle multiply, one sine and one cosine, the two
+    mixed products: 10); per bank of taps that share a chip grid (one, or
+    two for B1C wideband) two multiplies for the sample's ramp terms and,
+    for each of E/P/L, 3 adds and a ceil for the chip index (14); per tap
+    six multiply-adds (12).  Bytes: the capture span, the chip tables,
+    the rows written."""
+    taps = 2 if cfg.use_pilot else 1
+    banks = 2 if cfg.wideband else 1
+    per_sample = 10 + 14 * banks + 12 * (taps + (1 if cfg.wideband else 0))
+    samples = float(blksize.sum())
+    n_ch = blksize.shape[1]
+    tables = n_ch * (taps * (cfg.code_length * cfg.m_data + 32)
+                     + (cfg.code_length * cfg.m_p61 + 32 if cfg.wideband
+                        else 0))
+    from bds3_tpu_torch.track.scan import slot_names
+
+    rows = blksize.size * 4 * len(slot_names(cfg))
+    ms, by = roofline_ms(samples * per_sample, span + tables + rows)
+    return {"bound_ms": ms, "bound_by": by, "ops_per_sample": per_sample,
+            "samples": samples}
+
+
 def phase_build() -> float:
     from bds3_tpu_torch import _build
 
@@ -296,8 +468,8 @@ def phase_build() -> float:
 def phase_kernel_small() -> dict:
     import torch
 
-    from bds3_tpu.config import b2a_settings
-    from bds3_tpu.io import synthesize_if
+    from bds3_tpu_torch.config import b2a_settings
+    from bds3_tpu_torch.io import synthesize_if
     from bds3_tpu_torch.track.driver import as_capture, setup_tracking
 
     t0 = time.perf_counter()
@@ -317,7 +489,7 @@ def phase_kernel_small() -> dict:
 def phase_kernel_full() -> dict:
     import torch
 
-    from bds3_tpu.io import synthesize_if
+    from bds3_tpu_torch.io import synthesize_if
     from bds3_tpu_torch.track.driver import as_capture, setup_tracking
 
     t0 = time.perf_counter()
@@ -332,30 +504,49 @@ def phase_kernel_full() -> dict:
     return res
 
 
-def phase_receiver(caps: Captures) -> dict:
+B1C_BLENDS = ("composite", "nb", "split", "dotprod")
+
+
+def phase_kernel_b1c(caps: Captures) -> dict:
+    """K1 against track_block_reference at the B1C preset's rate
+    (99.375 Msps), 10 channels over the 4 satellites, one 20-epoch block
+    from the same state: narrowband, and wideband in each code blend.
+    Then one block's time through the kernel and through the plain
+    version, narrowband and the preset's wideband composite, with K1's
+    bound for that block."""
     import torch
 
-    from bds3_tpu_torch.receiver import run_receiver
     from bds3_tpu_torch.track.driver import as_capture, setup_tracking
-    from bds3_tpu_torch.track.fused import KERNEL_NAME, fused_track_block
+    from bds3_tpu_torch.track.fused import fused_track_block
+    from bds3_tpu_torch.track.scan import track_block_reference, unpack_rows
 
-    s = e2e_settings()
-    sig = caps.get("e2e")
-    t0 = time.perf_counter()
-    fused_track_block.launches = 0
-    res = run_receiver(sig, s, epochs_per_block=250, verbose=False,
-                       device="cuda")
-    torch.cuda.synchronize()
-    launches = fused_track_block.launches
-    wall = time.perf_counter() - t0
-    nav = res.nav
-    if len(res.channels) != 5:
-        raise AssertionError(f"{len(res.channels)} channels, expected 5: "
-                             f"{[c.prn for c in res.channels]}")
-    if launches <= 0 or res.track.correlator != KERNEL_NAME:
-        raise AssertionError(f"tracking did not run the kernel "
-                             f"(launches={launches}, "
-                             f"correlator={res.track.correlator!r})")
+    capture = as_capture(caps.get("b1c_full"), torch.device("cuda"))
+    out = {"phase": "kernel_vs_plain_b1c_99msps"}
+    cases = [("nb", b1c_full_settings())] + [
+        (f"wb_{b}", b1c_preset_settings(wb_code_blend=b)) for b in B1C_BLENDS]
+    for label, s in cases:
+        t0 = time.perf_counter()
+        setup = setup_tracking(capture, s, make_inits(s, FULL_SATS, 10),
+                               20, 20)
+        res = compare_block(setup.cfg, capture, setup, f"B1C {label}")
+        if label in ("nb", "wb_composite"):
+            _, rows = fused_track_block(setup.cfg, capture, setup.tables,
+                                        setup.consts, setup.state)
+            blk = unpack_rows(setup.cfg, rows)["blksize"].cpu().numpy()
+            cur = setup.state.cursor.cpu().numpy()
+            span = int((cur + blk.sum(axis=0)).max() - cur.min())
+            res.update(
+                kernel_block_ms=time_block(fused_track_block, setup,
+                                           capture, reps=5),
+                plain_block_ms=time_block(track_block_reference, setup,
+                                          capture, reps=2),
+                **track_fused_bound(setup.cfg, blk, span))
+        out[label] = {**res, "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def _check_fixes(nav, min_fixes: int, max_median_m: float) -> tuple:
     if nav is None:
         raise AssertionError("no navigation solution")
     ok = np.isfinite(nav.x)
@@ -363,15 +554,71 @@ def phase_receiver(caps: Captures) -> dict:
                   + (nav.y[ok] - RX_TRUTH[1]) ** 2
                   + (nav.z[ok] - RX_TRUTH[2]) ** 2)
     med = float(np.median(err)) if ok.any() else float("inf")
-    if ok.sum() < 3 or not med < 1.0:
+    if ok.sum() < min_fixes or not med < max_median_m:
         raise AssertionError(f"{int(ok.sum())} fixes, median 3D error "
-                             f"{med:.3f} m (need >= 3 and < 1 m)")
-    out = {"phase": "receiver_e2e", "channels": len(res.channels),
+                             f"{med:.3f} m (need >= {min_fixes} and < "
+                             f"{max_median_m} m)")
+    return int(ok.sum()), med
+
+
+def _check_ephemerides(nav, truth: dict) -> int:
+    ephs = nav.ephemerides
+    wrong = [p for p, e in ephs.items() if abs(e.m_0 - truth[p].m_0) > 1e-9]
+    if len(ephs) < 4 or wrong:
+        raise AssertionError(f"{len(ephs)} ephemerides decoded, m_0 wrong "
+                             f"for PRNs {wrong} (need >= 4, all true)")
+    return len(ephs)
+
+
+def drive_receiver(phase: str, sig, s, epochs_per_block: int,
+                   min_fixes: int, max_median_m: float, truth=None,
+                   **extra):
+    """run_receiver on the card, with the launch counts set to 0 just
+    before it and read just after: 5 channels, tracking through K1, the
+    fixes and, given the true ephemerides, the decoded ones checked.
+    Emits the phase's line (with `extra`); returns (results, that line)."""
+    import torch
+
+    from bds3_tpu_torch.receiver import run_receiver
+    from bds3_tpu_torch.track import fused
+
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    res = run_receiver(sig, s, epochs_per_block=epochs_per_block,
+                       verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    wall = time.perf_counter() - t0
+    if len(res.channels) != 5:
+        raise AssertionError(f"{phase}: {len(res.channels)} channels, "
+                             f"expected 5: {[c.prn for c in res.channels]}")
+    if launches["track_fused"] <= 0 \
+            or res.track.correlator != fused.KERNEL_NAME:
+        raise AssertionError(f"{phase}: tracking did not run the tracking "
+                             f"kernel (launches={launches}, "
+                             f"correlator={res.track.correlator!r})")
+    out = {"phase": phase, "channels": len(res.channels),
            "kernel_launches": launches, "correlator": res.track.correlator,
-           "epochs": int(res.track.n_epochs), "fixes": int(ok.sum()),
-           "median_3d_err_m": med, "wall_s": wall,
-           **{k: float(v) for k, v in res.timings.items()}}
+           "epochs": int(res.track.n_epochs)}
+    if truth is not None:
+        out["ephemerides"] = _check_ephemerides(res.nav, truth)
+    out["fixes"], out["median_3d_err_m"] = _check_fixes(
+        res.nav, min_fixes, max_median_m)
+    out.update(wall_s=wall,
+               lock_ok=[bool(h["lock_ok"]) for h in res.health],
+               **{k: float(v) for k, v in res.timings.items()}, **extra)
     emit(out)
+    return res, out
+
+
+def phase_receiver(caps: Captures) -> dict:
+    import torch
+
+    from bds3_tpu_torch.track.driver import as_capture, setup_tracking
+
+    s = e2e_settings()
+    sig = caps.get("e2e")
+    res, out = drive_receiver("receiver_e2e", sig, s, 250, 3, 1.0)
 
     # the kernel against its plain version at this path's shapes
     capture = as_capture(sig, torch.device("cuda"))
@@ -545,7 +792,15 @@ def phase_prefix() -> dict:
         kernel_ms = time_call(lambda: prefix.mix_prefix(*args), reps=20)
         plain_ms = time_call(lambda: prefix.mix_prefix_reference(*args),
                              reps=5)
+        # K2's bound: each valid int8 sample read once, the two float32
+        # prefix rows (n + 1 each) written once, the phase tables read;
+        # 12 operations a sample (the carrier as in track_fused_bound's
+        # 10, and one add for each prefix)
+        valid = np.clip(np.minimum(blk, n), 0, total - cursor).sum()
+        bound_ms, bound_by = roofline_ms(
+            12.0 * valid, valid + 2 * n_ch * (n + 1) * 4 + base.nbytes)
         out[label] = {"channels": n_ch, "n": n, **err,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
                       "max_abs_err": abs_err, "max_abs_P": float(scale.max()),
                       "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                       "seconds": time.perf_counter() - t0}
@@ -583,114 +838,193 @@ def phase_bucket_compare(caps: Captures) -> dict:
     return out
 
 
-def phase_b1c_track(caps: Captures) -> dict:
-    """B1C narrowband at 99.375 Msps, 10 channels over the 4 satellites,
-    200 epochs (2 s) through track() with "auto"."""
+def phase_acquire_b1c_preset(caps: Captures) -> dict:
+    """The preset's resampled acquisition over PRNs 1-63 on the 99.375 Msps
+    capture with 4 satellites: exactly those 4 must be found.  Then the
+    card's resampler (torch.fft) against the host scipy filter on the
+    acquisition window, in the interior."""
     import torch
 
-    from bds3_tpu_torch.track import prefix
-    from bds3_tpu_torch.track.driver import as_capture, track
+    from bds3_tpu_torch.acquire import resample
+    from bds3_tpu_torch.acquire.pcps import acquire
+    from bds3_tpu_torch.receiver import acquisition_signal_length
+    from bds3_tpu_torch.track.driver import as_capture
 
-    s = b1c_full_settings()
+    s = b1c_preset_settings()       # its PRN list is 1-63
+    sig = caps.get("b1c_full")
     dev = torch.device("cuda")
-    capture = as_capture(caps.get("b1c_full"), dev)
-    torch.cuda.synchronize()
-    inits = make_inits(s, FULL_SATS, 10)
-    n_ep = 200
-    trk_s = []
-    prefix.mix_prefix.launches = 0
-    for _ in range(2):          # cold, then warm
+    capture = as_capture(sig, dev)
+    n = acquisition_signal_length(s)
+    acq_s = []
+    for _ in range(2):          # cold (tables, FFT plans), then warm
         t0 = time.perf_counter()
-        trk = track(capture, s, inits, n_epochs=n_ep, epochs_per_block=n_ep,
-                    device=dev)
-        trk_s.append(time.perf_counter() - t0)
-    launches = prefix.mix_prefix.launches
-    if launches <= 0 or trk.correlator != prefix.KERNEL_NAME:
-        raise AssertionError(f"B1C tracking did not run the mix+prefix "
-                             f"kernel (launches={launches}, "
-                             f"correlator={trk.correlator!r})")
-    if trk.n_epochs != n_ep:
-        raise AssertionError(f"tracked {trk.n_epochs} epochs, expected {n_ep}")
-    locked = lock_count(trk, 100)
-    if locked != 10:
-        raise AssertionError(f"B1C: {locked}/10 channels locked")
+        acq = acquire(capture[:n], s, device=dev)
+        acq_s.append(time.perf_counter() - t0)
+    found = sorted(int(p) for p in acq.detected_prns())
+    want = sorted(p for p, _, _ in FULL_SATS)
+    if found != want:
+        raise AssertionError(f"B1C preset acquisition detected {found}, "
+                             f"expected {want}")
+    plan = resample.plan_resample(s)
     t0 = time.perf_counter()
-    plain = track(capture, s, inits, n_epochs=n_ep, epochs_per_block=n_ep,
-                  device=dev, correlator="bucket")
-    plain_s = time.perf_counter() - t0
-    seconds_tracked = n_ep * s.int_time
-    out = {"phase": "track_b1c_nb_99msps_10ch", "epochs": n_ep,
-           "channels": 10, "locked": locked, "kernel_launches": launches,
-           "correlator": trk.correlator, "cold_s": trk_s[0],
-           "warm_s": trk_s[1], "ms_per_epoch": trk_s[1] / n_ep * 1e3,
-           "realtime_factor": seconds_tracked / trk_s[1],
-           "plain_bucket_s": plain_s,
-           "plain_bucket_realtime_factor": seconds_tracked / plain_s,
-           "plain_locked": lock_count(plain, 100)}
+    card = resample.resample_signal_device(capture[:n], s, plan)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = resample.resample_signal(sig[:n], s, plan)
+    host_s = time.perf_counter() - t0
+    guard = int(3 * 701 * plan.new_fs / plan.old_fs) + 4
+    card, host = card.cpu().numpy()[guard:-guard], host[guard:-guard]
+    scale = float(np.abs(host).mean())
+    err = float(np.abs(card - host).max()) / scale
+    if not err <= 5e-3:
+        raise AssertionError(f"resampler on the card vs host: {err} of "
+                             "mean|host| (limit 5e-3)")
+    out = {"phase": "acquire_b1c_preset_99msps", "prns_searched":
+           len(acq.prns), "detected": found, "cold_s": acq_s[0],
+           "warm_s": acq_s[1], "resampled_fs": plan.new_fs,
+           "window_samples": n, "resample_card_s": card_s,
+           "resample_host_s": host_s, "resample_scaled_err": err}
     emit(out)
     return out
 
 
-def phase_receiver_b1c(caps: Captures) -> dict:
-    """run_receiver on the tests/test_e2e_b1c.py scenario, on the card."""
+def _launch_counts():
+    from bds3_tpu_torch.track import prefix
+    from bds3_tpu_torch.track.fused import fused_track_block
+
+    return {"track_fused": fused_track_block.launches,
+            "mix_prefix": prefix.mix_prefix.launches}
+
+
+def _reset_launch_counts():
+    from bds3_tpu_torch.track import prefix
+    from bds3_tpu_torch.track.fused import fused_track_block
+
+    fused_track_block.launches = 0
+    prefix.mix_prefix.launches = 0
+
+
+def _timed_track(capture, s, inits, n_ep, correlator="auto"):
+    """track() cold, then warm with the launch counts set to 0 just before
+    it: (results, cold s, warm s, the warm run's launches)."""
     import torch
 
-    from bds3_tpu_torch.receiver import run_receiver
-    from bds3_tpu_torch.track import prefix
+    from bds3_tpu_torch.track.driver import track
+
+    walls = []
+    for _ in range(2):
+        _reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trk = track(capture, s, inits, n_epochs=n_ep, epochs_per_block=n_ep,
+                    device=capture.device, correlator=correlator)
+        walls.append(time.perf_counter() - t0)
+    if trk.n_epochs != n_ep:
+        raise AssertionError(f"tracked {trk.n_epochs} epochs, expected {n_ep}")
+    return trk, walls[0], walls[1], _launch_counts()
+
+
+def phase_b1c_track(caps: Captures) -> dict:
+    """The B1C preset (wideband, composite blend) at 99.375 Msps, 10
+    channels over the 4 satellites, 200 epochs (2 s) through track() with
+    "auto" (K1); then narrowband through "auto" (K1), through
+    "bucket_pallas" (the prefix-sum path with K2) and through the plain
+    "bucket" path.  Every run must lock 10/10."""
+    import torch
+
+    from bds3_tpu_torch.track import fused, prefix
+    from bds3_tpu_torch.track.driver import as_capture
+
+    dev = torch.device("cuda")
+    capture = as_capture(caps.get("b1c_full"), dev)
+    n_ep = 200
+    seconds_tracked = n_ep * 0.01
+    outs = {}
+    for phase, s, runs in (
+            ("track_b1c_wb_99msps_10ch", b1c_preset_settings(),
+             (("auto", fused.KERNEL_NAME, "track_fused"),)),
+            ("track_b1c_nb_99msps_10ch", b1c_full_settings(),
+             (("auto", fused.KERNEL_NAME, "track_fused"),
+              ("bucket_pallas", prefix.KERNEL_NAME, "mix_prefix"),
+              ("bucket", "bucket", None)))):
+        inits = make_inits(s, FULL_SATS, 10)
+        out = {"phase": phase, "epochs": n_ep, "channels": 10}
+        for correlator, ran, kernel in runs:
+            trk, cold, warm, launches = _timed_track(capture, s, inits, n_ep,
+                                                     correlator)
+            if trk.correlator != ran or (kernel and launches[kernel] <= 0):
+                raise AssertionError(
+                    f"{phase} {correlator}: ran {trk.correlator!r}, "
+                    f"launches {launches}")
+            locked = lock_count(trk, 100)
+            if locked != 10:
+                raise AssertionError(f"{phase} {correlator}: {locked}/10 "
+                                     "channels locked")
+            out[correlator] = {
+                "correlator": trk.correlator, "locked": locked,
+                "launches": launches, "cold_s": cold, "warm_s": warm,
+                "ms_per_epoch": warm / n_ep * 1e3,
+                "realtime_factor": seconds_tracked / warm}
+        emit(out)
+        outs[phase] = out
+    return outs
+
+
+def phase_receiver_b1c(caps: Captures) -> dict:
+    """run_receiver on the tests/test_e2e_b1c.py scenario (narrowband), on
+    the card: tracking through K1 ("auto")."""
+    import torch
+
     from bds3_tpu_torch.track.driver import as_capture, setup_tracking
 
     s = b1c_e2e_settings()
     sig = caps.get("b1c_e2e")
     truth = {e.prn: e for e in b1c_scenario().ephemerides}
-    t0 = time.perf_counter()
-    prefix.mix_prefix.launches = 0
-    res = run_receiver(sig, s, epochs_per_block=250, verbose=False,
-                       device="cuda")
-    torch.cuda.synchronize()
-    launches = prefix.mix_prefix.launches
-    wall = time.perf_counter() - t0
-    if len(res.channels) != 5:
-        raise AssertionError(f"{len(res.channels)} channels, expected 5: "
-                             f"{[c.prn for c in res.channels]}")
-    if launches <= 0 or res.track.correlator != prefix.KERNEL_NAME:
-        raise AssertionError(f"B1C tracking did not run the mix+prefix "
-                             f"kernel (launches={launches}, "
-                             f"correlator={res.track.correlator!r})")
-    nav = res.nav
-    if nav is None:
-        raise AssertionError("no navigation solution")
-    ephs = nav.ephemerides
-    wrong = [p for p, e in ephs.items() if abs(e.m_0 - truth[p].m_0) > 1e-9]
-    if len(ephs) < 4 or wrong:
-        raise AssertionError(f"{len(ephs)} ephemerides decoded, m_0 wrong "
-                             f"for PRNs {wrong} (need >= 4, all true)")
-    ok = np.isfinite(nav.x)
-    err = np.sqrt((nav.x[ok] - RX_TRUTH[0]) ** 2
-                  + (nav.y[ok] - RX_TRUTH[1]) ** 2
-                  + (nav.z[ok] - RX_TRUTH[2]) ** 2)
-    med = float(np.median(err)) if ok.any() else float("inf")
-    if ok.sum() < 10 or not med < 2.0:
-        raise AssertionError(f"{int(ok.sum())} fixes, median 3D error "
-                             f"{med:.3f} m (need >= 10 and < 2 m)")
-    out = {"phase": "receiver_b1c_e2e", "channels": len(res.channels),
-           "kernel_launches": launches, "correlator": res.track.correlator,
-           "epochs": int(res.track.n_epochs), "ephemerides": len(ephs),
-           "fixes": int(ok.sum()), "median_3d_err_m": med, "wall_s": wall,
-           "lock_ok": [bool(h["lock_ok"]) for h in res.health],
-           **{k: float(v) for k, v in res.timings.items()}}
-    emit(out)
+    res, out = drive_receiver("receiver_b1c_e2e", sig, s, 250, 10, 2.0,
+                              truth)
 
-    # the kernel path against the same path with the kernel's plain
-    # version, one block at this path's shapes.  20 epochs, as in
-    # phase_bucket_compare: over a longer closed loop one float32 loop
-    # state rounds the other way sooner or later, whatever the two
-    # summation orders, and shifts the carrier phase by ~1e-4 cycles,
-    # which moves Q by I times that (3e-2 of mean|Q| over 250 epochs)
+    # K1 against its plain version, and the bucket_pallas path (K2)
+    # against the same path with K2's plain version, one block at this
+    # path's shapes.  20 epochs for the bucket path: over a longer closed
+    # loop one float32 loop state rounds the other way sooner or later,
+    # whatever the two summation orders, and shifts the carrier phase by
+    # ~1e-4 cycles, which moves Q by I times that (3e-2 of mean|Q| over
+    # 250 epochs)
     capture = as_capture(sig, torch.device("cuda"))
     setup = setup_tracking(capture, s, res.channels, 20, 20)
-    cmp = compare_block(setup.cfg, capture, setup, "B1C receiver shapes",
-                        "bucket_pallas", plain_pallas_block())
-    emit({"phase": "bucket_vs_plain_b1c_receiver_shapes", **cmp})
+    cmp = compare_block(setup.cfg, capture, setup, "B1C receiver shapes")
+    emit({"phase": "kernel_vs_plain_b1c_receiver_shapes", **cmp})
+    cmp_b = compare_block(setup.cfg, capture, setup, "B1C receiver shapes",
+                          "bucket_pallas", plain_pallas_block())
+    emit({"phase": "bucket_vs_plain_b1c_receiver_shapes", **cmp_b})
+    return {**out, "cmp": cmp, "cmp_bucket": cmp_b}
+
+
+def phase_receiver_b1c_wb(caps: Captures) -> dict:
+    """run_receiver on the bench.py:383-431 scenario: B1C wideband ("split"
+    blend), 33.125 Msps, IF fs/4, 26 s, 5 satellites (seeds 5 and 2), with
+    the preset's resampled acquisition; the capture is rendered on the
+    card (synthesize_scenario_on).  Tracking through K1."""
+    import torch
+
+    from bds3_tpu_torch.track.driver import setup_tracking
+
+    s = b1c_wb_e2e_settings()
+    sc = b1c_wb_scenario()
+    t0 = time.perf_counter()
+    capture = synthesize_scenario_on(sc, torch.device("cuda"),
+                                     noise_std=2.0, amplitude=1.3, seed=2)
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    res, out = drive_receiver(
+        "receiver_b1c_wb_e2e", capture, s, 500, 10, 2.0,
+        {e.prn: e for e in sc.ephemerides}, synth_on_card_s=synth_s,
+        samples=int(capture.shape[0]))
+    setup = setup_tracking(capture, s, res.channels, 20, 20)
+    cmp = compare_block(setup.cfg, capture, setup, "B1C wideband receiver")
+    emit({"phase": "kernel_vs_plain_b1c_wb_receiver_shapes", **cmp})
+    del capture
     return {**out, "cmp": cmp}
 
 
@@ -754,13 +1088,16 @@ def profile_cell(cell: str, s, sig, n_channels: int, n_ep: int,
 
 def phase_profile() -> None:
     """The profiler over the tracking cells of PERF.md section 5 on short
-    captures: B1C narrowband 10 channels, 30 epochs, and B2a 12 channels,
-    200 epochs, at 99.375 Msps, through each path that takes them."""
-    from bds3_tpu.io import synthesize_if
+    captures: the B1C preset (wideband) and B1C narrowband, 10 channels,
+    30 epochs, and B2a 12 channels, 200 epochs, at 99.375 Msps, through
+    each path that takes them."""
+    from bds3_tpu_torch.io import synthesize_if
 
     for cell, s, n_ch, n_ep, paths in (
+            ("b1c_wb_99msps_10ch", b1c_preset_settings(), 10, 30,
+             ("fused", "bucket_pallas")),
             ("b1c_nb_99msps_10ch", b1c_full_settings(), 10, 30,
-             ("bucket_pallas", "bucket")),
+             ("fused", "bucket_pallas", "bucket")),
             ("b2a_99msps_12ch", full_settings(), 12, 200,
              ("fused", "bucket_pallas", "bucket"))):
         sig = synthesize_if(s, sat_params(FULL_SATS),
@@ -808,11 +1145,14 @@ def main() -> int:
         pre = phase_prefix()
         small = phase_kernel_small()
         full = phase_kernel_full()
-        rate = phase_full_rate(caps)
+        phase_full_rate(caps)
         rx = phase_receiver(caps)
         phase_bucket_compare(caps)
-        phase_b1c_track(caps)
+        k1_b1c = phase_kernel_b1c(caps)
+        phase_acquire_b1c_preset(caps)
+        b1c = phase_b1c_track(caps)
         rx_b1c = phase_receiver_b1c(caps)
+        rx_wb = phase_receiver_b1c_wb(caps)
     finally:
         caps.stop()
     if "jax" in sys.modules:
@@ -820,26 +1160,52 @@ def main() -> int:
 
     from bds3_tpu_torch.track import fused, prefix
 
+    wb = b1c["track_b1c_wb_99msps_10ch"]
+    nb = b1c["track_b1c_nb_99msps_10ch"]
+    k1 = k1_b1c["wb_composite"]
+    k2 = pre["b1c_10ch"]
     kernels = [{
         "name": "track_fused",
         "route": "cuda",
         "source": fused.SOURCE,
         "replaces": fused.REPLACES,
-        "launches": rx["kernel_launches"],
-        "max_abs_err": max(small["max_abs_err"], full["max_abs_err"],
-                           rx["cmp"]["max_abs_err"]),
-        "ms": rate["kernel_block_ms"],
-        "plain_ms": rate["plain_block_ms"],
+        # this slice's main path: the B1C preset through track()
+        "launches": wb["auto"]["launches"]["track_fused"],
+        "launches_by_path": {
+            "b1c_wb_preset_track": wb["auto"]["launches"]["track_fused"],
+            "b1c_nb_track": nb["auto"]["launches"]["track_fused"],
+            "b1c_wb_e2e_receiver": rx_wb["kernel_launches"]["track_fused"],
+            "b1c_nb_e2e_receiver": rx_b1c["kernel_launches"]["track_fused"],
+            "b2a_e2e_receiver": rx["kernel_launches"]["track_fused"]},
+        "max_abs_err": max(
+            [small["max_abs_err"], full["max_abs_err"],
+             rx["cmp"]["max_abs_err"], rx_b1c["cmp"]["max_abs_err"],
+             rx_wb["cmp"]["max_abs_err"]]
+            + [k1_b1c[c]["max_abs_err"] for c in k1_b1c if c != "phase"]),
+        # one W = 20 block of the preset (wideband composite, 10 channels)
+        "ms": k1["kernel_block_ms"],
+        "plain_ms": k1["plain_block_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": None,
     }, {
         "name": "mix_prefix",
         "route": "cuda",
         "source": prefix.SOURCE,
         "replaces": prefix.REPLACES,
-        "launches": rx_b1c["kernel_launches"],
+        # its B1C path: narrowband through bucket_pallas
+        "launches": nb["bucket_pallas"]["launches"]["mix_prefix"],
+        "launches_by_path": {
+            "b1c_nb_track_bucket_pallas":
+                nb["bucket_pallas"]["launches"]["mix_prefix"]},
         "max_abs_err": max(pre[label]["max_abs_err"]
                            for label, _, _ in prefix_shapes()),
-        "ms": pre["b1c_10ch"]["kernel_ms"],
-        "plain_ms": pre["b1c_10ch"]["plain_ms"],
+        # one B1C epoch, 10 channels
+        "ms": k2["kernel_ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": None,
     }]
     emit({"phase": "summary", "build_s": build_s})
     print(json.dumps({"kernels": kernels}))

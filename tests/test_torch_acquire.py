@@ -15,9 +15,13 @@ import torch
 from bds3_tpu.acquire import acquire as ref_acquire
 from bds3_tpu.config import b1c_settings, b2a_settings
 from bds3_tpu.io import SatParams, synthesize_if
+from bds3_tpu_torch import convert
 from bds3_tpu_torch.acquire import pcps as port
 
 torch.set_num_threads(2)
+
+# each package gets its own Settings: the port's enums are its own
+P = convert.settings_from_reference
 
 
 def b2a_test_settings(**kw):
@@ -55,7 +59,7 @@ def test_matches_reference(name):
     s, sats, n_ms, noise, seed = CASES[name]
     sig = synthesize_if(s, sats, n_ms=n_ms, noise_std=noise, seed=seed)
     want = ref_acquire(sig, s)
-    got = port.acquire(sig, s, device="cpu")
+    got = port.acquire(sig, P(s), device="cpu")
     np.testing.assert_array_equal(got.prns, want.prns)
     np.testing.assert_array_equal(got.detected, want.detected)
     assert got.detected.any()
@@ -78,7 +82,7 @@ def test_iq_capture_matches_reference():
     sig = synthesize_if(s, [sat], n_ms=n_ms, noise_std=noise, seed=5)
     x = sig[:, 0].astype(np.float32) + 1j * sig[:, 1].astype(np.float32)
     want = ref_acquire(x, s)
-    got = port.acquire(x, s, device="cpu")
+    got = port.acquire(x, P(s), device="cpu")
     assert got.detected[0] and want.detected[0]
     np.testing.assert_array_equal(got.code_phase, want.code_phase)
     np.testing.assert_array_equal(got.carr_freq, want.carr_freq)
@@ -88,8 +92,8 @@ def test_iq_capture_matches_reference():
 def test_tensor_input_and_table_cache():
     s, sats, n_ms, noise, seed = CASES["b2a_single_prn"]
     sig = synthesize_if(s, sats, n_ms=n_ms, noise_std=noise, seed=seed)
-    a = port.acquire(sig, s, device="cpu")
-    b = port.acquire(torch.from_numpy(sig), s, device="cpu")
+    a = port.acquire(sig, P(s), device="cpu")
+    b = port.acquire(torch.from_numpy(sig), P(s), device="cpu")
     np.testing.assert_array_equal(a.peak_metric, b.peak_metric)
     assert port._device_acq_tables.cache_info().currsize >= 1
     port.clear_acq_caches()
@@ -97,8 +101,11 @@ def test_tensor_input_and_table_cache():
 
 
 def test_resampling_not_ported():
+    """Resampled acquisition is ported (test_torch_resample.py holds it
+    to the reference).  What the port refuses before any work is another
+    package's Settings, whose Signal is not the port's."""
     s = b1c_settings()          # 99.375 Msps with resampling on
-    with pytest.raises(NotImplementedError, match="resampling"):
+    with pytest.raises(TypeError, match="settings_from_reference"):
         port.acquire(np.zeros(10, np.int8), s, device="cpu")
-    s_off = dataclasses.replace(s, resampling=False)
+    s_off = dataclasses.replace(P(s), resampling=False)
     assert port.make_acq_config(s_off).n_fft == 2 ** 21

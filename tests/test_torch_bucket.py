@@ -32,6 +32,9 @@ from bds3_tpu_torch.track.scan import output_names, slot_names, unpack_rows
 
 torch.set_num_threads(2)
 
+# each package gets its own Settings: the port's enums are its own
+P = convert.settings_from_reference
+
 CORRELATORS = ("bucket", "bucket_pallas")
 PROMPTS = ("d_ip", "d_qp", "d_ie", "d_il", "p11_ip", "p11_qp")
 
@@ -80,7 +83,7 @@ def _track_both(monkeypatch, correlator, s, sats, sig, n_epochs, epb):
     _pin_reference(monkeypatch, correlator)
     ref = ref_driver.track(sig, s, [_init_for(ref_state, s, x) for x in sats],
                            n_epochs=n_epochs, epochs_per_block=epb)
-    port = port_driver.track(sig, s,
+    port = port_driver.track(sig, P(s),
                              [_init_for(port_state, s, x) for x in sats],
                              n_epochs=n_epochs, epochs_per_block=epb,
                              device="cpu", correlator=correlator)

@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-tracking kernel (track_fused.cu) and the mix+prefix kernel (mix_prefix.cu).
+tracking kernel (track_fused.cu, for B2a and B1C narrowband and wideband)
+and the mix+prefix kernel (mix_prefix.cu).  The port's own config and
+synthesis are used throughout, so nothing here needs JAX.
 
 Marked `cuda` and skipped without an NVIDIA GPU.  On a machine with one
 (and without JAX, which tests/conftest.py imports) run:
@@ -12,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from bds3_tpu.config import TrackMode, b2a_settings
-from bds3_tpu.io import SatParams, synthesize_if
+from bds3_tpu_torch.config import TrackMode, b1c_settings, b2a_settings
+from bds3_tpu_torch.io import SatParams, synthesize_if
 from bds3_tpu_torch.track import driver
 from bds3_tpu_torch.track.fused import fused_track_block
 from bds3_tpu_torch.track.prefix import (
@@ -48,10 +50,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _setup(dev, mode, epochs):
-    s = b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6,
-                     track_mode=mode)
-    sig = synthesize_if(s, SATS, n_ms=epochs + 15.0, noise_std=1.0, seed=6)
+def _setup(dev, mode, epochs, s=None):
+    s = s or b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6,
+                          track_mode=mode)
+    sig = synthesize_if(s, SATS, n_ms=(epochs + 15) * s.int_time * 1e3,
+                        noise_std=1.0, seed=6)
     inits = []
     for sat in SATS:
         rate = s.code_freq_basis * (1 + sat.doppler_hz / s.carr_freq_basis)
@@ -73,6 +76,33 @@ def test_kernel_matches_plain_version(cuda, mode):
     """Exact blksize and cursors; the same sums in another order agree
     within 1e-3 of |a|.mean()+1."""
     cap, setup = _setup(cuda, mode, 30)
+    before = fused_track_block.launches
+    st_k, rows_k = fused_track_block(setup.cfg, cap, setup.tables,
+                                     setup.consts, setup.state)
+    assert fused_track_block.launches == before + 1
+    st_r, rows_r = track_block_reference(setup.cfg, cap, setup.tables,
+                                         setup.consts, setup.state)
+    torch.cuda.synchronize()
+    assert torch.equal(st_k.cursor, st_r.cursor)
+    k, r = _rows(setup.cfg, rows_k), _rows(setup.cfg, rows_r)
+    np.testing.assert_array_equal(k["blksize"], r["blksize"])
+    for n in r:
+        scale = np.abs(r[n]).mean() + 1.0
+        np.testing.assert_allclose(k[n] / scale, r[n] / scale, atol=1e-3,
+                                   err_msg=n)
+
+
+@pytest.mark.parametrize("mode,blend", [
+    (TrackMode.NARROWBAND, "composite"), (TrackMode.WIDEBAND, "composite"),
+    (TrackMode.WIDEBAND, "nb"), (TrackMode.WIDEBAND, "split"),
+    (TrackMode.WIDEBAND, "dotprod")])
+def test_b1c_kernel_matches_plain_version(cuda, mode, blend):
+    """B1C at 30 Msps (the wideband setup of tests/test_pallas_fused.py),
+    10 epochs: exact blksize and cursors, every output within 1e-3 of
+    |a|.mean()+1 (both sum exactly and round once)."""
+    s = b1c_settings(sampling_freq=30e6, intermediate_freq=7.5e6,
+                     track_mode=mode, wb_code_blend=blend)
+    cap, setup = _setup(cuda, mode, 10, s)
     before = fused_track_block.launches
     st_k, rows_k = fused_track_block(setup.cfg, cap, setup.tables,
                                      setup.consts, setup.state)

@@ -1,6 +1,7 @@
 """The whole slice on the CPU: bds3_tpu_torch.receiver.run_receiver
 against bds3_tpu.receiver.run_receiver on short synthesized B2a and B1C
 narrowband scenarios, the CLI, and the port's independence from JAX."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -13,10 +14,17 @@ import bds3_tpu.track.driver as ref_driver
 from bds3_tpu.config import TrackMode, b1c_settings, b2a_settings
 from bds3_tpu.io import SatParams, synthesize_if
 from bds3_tpu.io.scenario import make_scenario, synthesize_scenario
+from bds3_tpu.receiver import acquisition_signal_length as \
+    ref_acquisition_signal_length
 from bds3_tpu.receiver import run_receiver as ref_run_receiver
+from bds3_tpu_torch.config import FileType
+from bds3_tpu_torch import convert
 from bds3_tpu_torch import receiver as port_receiver
 
 torch.set_num_threads(2)
+
+# each package gets its own Settings: the port's enums are its own
+P = convert.settings_from_reference
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RX_TRUTH = np.array([-1288398.0, -4721697.0, 4078625.0])
@@ -81,7 +89,7 @@ def test_receiver_matches_reference(scenario, monkeypatch):
     s, sig = scenario
     _pin_reference(monkeypatch, "gather")
     ref = ref_run_receiver(sig, s, epochs_per_block=250, verbose=False)
-    port = port_receiver.run_receiver(sig, s, epochs_per_block=250,
+    port = port_receiver.run_receiver(sig, P(s), epochs_per_block=250,
                                       verbose=False, device="cpu")
     assert ref.track.correlator == "gather"
     assert port.track.correlator == "reference"
@@ -124,7 +132,8 @@ def test_b1c_receiver_matches_reference(monkeypatch):
     """run_receiver on ~2 s of a 6 Msps B1C narrowband scenario (the
     tests/test_e2e_b1c.py settings, shortened): the same channels, the same
     epoch geometry, and the same lock verdicts; the reference is pinned to
-    bucket_pallas, the path the port's "auto" takes for B1C."""
+    gather, the direct sum that the port's "auto" (the CUDA tracking
+    kernel, its plain version on the CPU) computes for B1C."""
     s = b1c_settings(
         sampling_freq=6e6, intermediate_freq=1.5e6, ms_to_process=2_000,
         use_tropo_corr=False, acq_satellite_list=tuple(range(1, 7)),
@@ -132,12 +141,12 @@ def test_b1c_receiver_matches_reference(monkeypatch):
         acq_search_band=3000.0, track_mode=TrackMode.NARROWBAND)
     sc = make_scenario(s, RX_TRUTH, n_sats=4, sow_base=3600.0 * 3, seed=5)
     sig = synthesize_scenario(sc, noise_std=2.0, amplitude=1.3, seed=2)
-    _pin_reference(monkeypatch, "bucket_pallas")
+    _pin_reference(monkeypatch, "gather")
     ref = ref_run_receiver(sig, s, epochs_per_block=50, verbose=False)
-    port = port_receiver.run_receiver(sig, s, epochs_per_block=50,
+    port = port_receiver.run_receiver(sig, P(s), epochs_per_block=50,
                                       verbose=False, device="cpu")
-    assert ref.track.correlator == "bucket_pallas"
-    assert port.track.correlator == "bucket_pallas"
+    assert ref.track.correlator == "gather"
+    assert port.track.correlator == "reference"
 
     def key(c):
         return c.prn, c.acquired_freq, c.code_phase
@@ -167,14 +176,24 @@ def test_cuda_request_without_card_raises(scenario, monkeypatch):
     monkeypatch.setattr(port_receiver, "acquire", must_not_run)
     monkeypatch.setattr(port_receiver, "track", must_not_run)
     with pytest.raises(RuntimeError, match="cuda"):
-        port_receiver.run_receiver(sig, s, verbose=False, device="cuda")
+        port_receiver.run_receiver(sig, P(s), verbose=False, device="cuda")
 
 
 def test_unsupported_config_raises_before_work():
-    s = b1c_settings(resampling=False)
-    with pytest.raises(NotImplementedError, match="B1C"):
-        port_receiver.run_receiver(np.zeros(1000, np.int8), s,
-                                   verbose=False, device="cuda")
+    """The B1C preset (wideband, resampled acquisition) is ported: it
+    passes the port's checks, and its acquisition window maps back from
+    the resampled rate as the reference's does.  IQ captures are refused
+    before any work, and so is another package's Settings."""
+    s = P(b1c_settings())
+    port_receiver.check_ported(s)
+    assert port_receiver.acquisition_signal_length(s) == \
+        ref_acquisition_signal_length(b1c_settings())
+    for bad, err in ((dataclasses.replace(s, file_type=FileType.IQ8),
+                      NotImplementedError),
+                     (b1c_settings(), TypeError)):
+        with pytest.raises(err):
+            port_receiver.run_receiver(np.zeros(1000, np.int8), bad,
+                                       verbose=False, device="cuda")
 
 
 def test_imports_without_jax():
@@ -217,7 +236,8 @@ class TestCLI:
                              env=env, cwd=REPO)
         assert res.returncode == 0, res.stderr[-2000:]
 
-    @pytest.mark.parametrize("extra", [["--resample"],
+    # the first case was --resample, ported now; IQ captures are not
+    @pytest.mark.parametrize("extra", [["--file-type", "2"],
                                        ["--transport", "int4"]])
     def test_unported_options_exit_with_error(self, tmp_path, extra):
         out = subprocess.run(
@@ -247,12 +267,37 @@ class TestCLI:
         assert out.returncode == 0, out.stderr[-2000:]
         assert "[acquire]" in out.stdout and "19(" in out.stdout
         assert "[track]" in out.stdout
-        assert "bucket_pallas on cpu" in out.stdout
+        assert "reference on cpu" in out.stdout
 
     def test_b1c_exits_with_error(self, tmp_path):
+        """B1C runs at its preset now; an IQ capture still exits with an
+        error before the file is opened, and so does --transport."""
+        for extra in (["--file-type", "2"], ["--transport", "int2"]):
+            out = subprocess.run(
+                [sys.executable, "-m", "bds3_tpu_torch", "--signal", "b1c",
+                 "--file", str(tmp_path / "none.bin"), "--device", "cpu",
+                 *extra],
+                capture_output=True, text=True, timeout=400,
+                env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+            assert out.returncode != 0 and "not ported" in out.stderr
+
+    def test_b1c_preset_runs(self, tmp_path):
+        """--signal b1c at its preset's track mode (wideband) with its
+        resampled acquisition (--resample, the preset's default above
+        15 Msps), at 30 Msps to keep the CPU run short: the CLI acquires
+        and tracks through the kernel's plain version."""
+        s = b1c_settings(sampling_freq=30e6, intermediate_freq=7.5e6)
+        sat = SatParams(prn=19, doppler_hz=500.0, code_phase_chips=100.0,
+                        amplitude=1.5)
+        path = tmp_path / "b1c.bin"
+        synthesize_if(s, [sat], n_ms=130.0, noise_std=2.0, seed=3).tofile(path)
         out = subprocess.run(
             [sys.executable, "-m", "bds3_tpu_torch", "--signal", "b1c",
-             "--file", str(tmp_path / "none.bin"), "--device", "cpu"],
+             "--file", str(path), "--device", "cpu", "--resample",
+             "--fs", "30e6", "--if-freq", "7.5e6", "--prns", "19,7",
+             "--ms", "60"],
             capture_output=True, text=True, timeout=400,
             env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
-        assert out.returncode != 0 and "not ported" in out.stderr
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert "[acquire]" in out.stdout and "19(" in out.stdout
+        assert "[track]" in out.stdout and "reference on cpu" in out.stdout

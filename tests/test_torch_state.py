@@ -2,6 +2,7 @@
 tables) equal the JAX package's originals exactly, and convert.py carries
 them over to tensors without changing a value or a dtype."""
 import dataclasses
+import enum
 
 import numpy as np
 import pytest
@@ -21,6 +22,16 @@ from bds3_tpu_torch.track import scan as port_scan
 from bds3_tpu_torch.track import state as port_state
 
 torch.set_num_threads(2)
+
+# each package gets its own Settings: the port's enums are its own
+P = convert.settings_from_reference
+
+
+def _by_name(d: dict) -> dict:
+    """A dataclass's fields with each enum as its name: the two packages'
+    enums are of different classes."""
+    return {k: v.name if isinstance(v, enum.Enum) else v
+            for k, v in d.items()}
 
 SETTINGS = {
     "b2a_full": b2a_settings(),
@@ -52,8 +63,9 @@ def _assert_tuple_equal(a, b):
 def test_make_track_config(name, epb):
     s = SETTINGS[name]
     want = ref_state.make_track_config(s, False, epb)
-    got = port_state.make_track_config(s, False, epb)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    got = port_state.make_track_config(P(s), False, epb)
+    assert _by_name(dataclasses.asdict(got)) == \
+        _by_name(dataclasses.asdict(want))
     assert convert.config_from_reference(want) == got
 
 
@@ -61,9 +73,9 @@ def test_make_track_config(name, epb):
 def test_channel_consts_and_tables(name):
     s = SETTINGS[name]
     cfg_r = ref_state.make_track_config(s, False, 50)
-    cfg_p = port_state.make_track_config(s, False, 50)
+    cfg_p = port_state.make_track_config(P(s), False, 50)
     _assert_tuple_equal(
-        port_state.channel_consts(cfg_p, _inits(port_state), s),
+        port_state.channel_consts(cfg_p, _inits(port_state), P(s)),
         ref_state.channel_consts(cfg_r, _inits(ref_state), s))
     for m in (cfg_r.m_data, 12):
         _assert_tuple_equal(port_state.code_coarse_tables(cfg_p, m),
@@ -97,8 +109,8 @@ def test_initial_state_and_conversion():
 @pytest.mark.parametrize("use_pilot", [True, False])
 def test_tables_to_torch_layout(use_pilot):
     mode = TrackMode.NARROWBAND if use_pilot else TrackMode.DATA_ONLY
-    s = b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6,
-                     track_mode=mode)
+    s = P(b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6,
+                       track_mode=mode))
     cfg = port_state.make_track_config(s, False, 50)
     data, p11, _ = port_driver.channel_code_tables(cfg, _inits(port_state))
     ck_i, ck_f = port_state.code_coarse_tables(cfg, 1)
@@ -110,6 +122,32 @@ def test_tables_to_torch_layout(use_pilot):
     if use_pilot:
         np.testing.assert_array_equal(t.code[:, 1].numpy(), p11)
     assert t.ck_int.dtype == torch.int32 and t.ck_frac.dtype == torch.float32
+
+
+def test_tables_to_torch_wideband():
+    """B1C wideband: the JAX package's own tables (channel_code_tables,
+    code_coarse_tables at m_p61 = 12) carry over to TrackTables with the
+    BOC(6,1) pilot and its coarse tables, equal to the port's."""
+    s = SETTINGS["b1c_wb"]
+    cfg_r = ref_state.make_track_config(s, False, 50)
+    cfg = convert.config_from_reference(cfg_r)
+    assert cfg.wideband and cfg.m_p61 == 12
+    data, p11, p61 = ref_driver.channel_code_tables(cfg_r, _inits(ref_state))
+    ck_i, ck_f = ref_state.code_coarse_tables(cfg_r, cfg_r.m_data)
+    ck61 = ref_state.code_coarse_tables(cfg_r, cfg_r.m_p61)
+    t = convert.tables_to_torch(cfg, data, p11, ck_i, ck_f, "cpu", p61, *ck61)
+    assert t.code.shape == (3, 2, 10230 * 2 + 2 * port_scan.CODE_PAD)
+    assert t.code61.shape == (3, 10230 * 12 + 2 * port_scan.CODE_PAD)
+    assert t.code61.dtype == torch.int8 and t.ck61_int.dtype == torch.int32
+    np.testing.assert_array_equal(t.code61.numpy(), p61)
+    np.testing.assert_array_equal(t.ck61_int.numpy(), ck61[0])
+    np.testing.assert_array_equal(t.ck61_frac.numpy(), ck61[1])
+    # the port's driver builds the same tables
+    cap = torch.zeros(20_000_000, dtype=torch.int8)   # 50 epochs at 30 Msps
+    setup = port_driver.setup_tracking(cap, P(s), _inits(port_state), 50, 50)
+    for name in ("code", "ck_int", "ck_frac", "code61", "ck61_int",
+                 "ck61_frac"):
+        assert torch.equal(getattr(setup.tables, name), getattr(t, name))
 
 
 def test_assign_channels():
@@ -146,8 +184,8 @@ def test_wb_dll_weight():
 @pytest.mark.parametrize("name", ["b2a_full", "b2a_10msps", "b1c_wb"])
 def test_make_acq_config(name):
     s = SETTINGS[name]
-    assert dataclasses.asdict(port_acq.make_acq_config(s)) == \
-        dataclasses.asdict(ref_acq.make_acq_config(s))
+    assert _by_name(dataclasses.asdict(port_acq.make_acq_config(P(s)))) == \
+        _by_name(dataclasses.asdict(ref_acq.make_acq_config(s)))
 
 
 @pytest.mark.parametrize("name", ["b2a_10msps", "b1c_wb"])
@@ -156,7 +194,7 @@ def test_acquisition_code_tables(name):
     prns = np.array([1, 19, 44])
     for fn in ("acq_code_tables", "full_code_tables", "fine_code_tables"):
         want = getattr(ref_acq, fn)(s, prns)
-        got = getattr(port_acq, fn)(s, prns)
+        got = getattr(port_acq, fn)(P(s), prns)
         for x, y in zip(got, want):
             assert x.dtype == y.dtype == np.int8, fn
             np.testing.assert_array_equal(x, y, err_msg=fn)

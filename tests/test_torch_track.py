@@ -34,6 +34,9 @@ from bds3_tpu_torch.track.scan import (
 
 torch.set_num_threads(2)
 
+# each package gets its own Settings: the port's enums are its own
+P = convert.settings_from_reference
+
 S10 = dict(sampling_freq=10e6, intermediate_freq=2.5e6)
 SAT19 = SatParams(prn=19, doppler_hz=777.0, code_phase_chips=123.0,
                   amplitude=0.9)
@@ -75,7 +78,7 @@ def test_matches_jax_gather():
     ref = ref_driver.track(sig, s, [_init_for(ref_state, s, SAT19)],
                            n_epochs=100, epochs_per_block=50,
                            correlator="gather")
-    port = port_driver.track(sig, s, [_init_for(port_state, s, SAT19)],
+    port = port_driver.track(sig, P(s), [_init_for(port_state, s, SAT19)],
                              n_epochs=100, epochs_per_block=50, device="cpu")
     assert port.correlator == "reference" and port.n_epochs == 100
     _assert_close(ref, port, PROMPTS, atol=2e-2, carr_atol=0.05)
@@ -95,8 +98,8 @@ def test_matches_jax_fused_interpret(mode, epb):
                                     for x in (SAT19, SAT20)],
                            n_epochs=30, epochs_per_block=epb,
                            correlator="fused")
-    port = port_driver.track(sig, s, [_init_for(port_state, s, x)
-                                      for x in (SAT19, SAT20)],
+    port = port_driver.track(sig, P(s), [_init_for(port_state, s, x)
+                                         for x in (SAT19, SAT20)],
                              n_epochs=30, epochs_per_block=epb, device="cpu")
     assert ref.correlator == "fused"
     assert sorted(port.outputs) == sorted(ref.outputs)
@@ -162,7 +165,7 @@ def test_wrapper_runs_plain_version_on_cpu():
     sig = synthesize_if(s, [SAT19], n_ms=20.0, noise_std=1.0, seed=1)
     cap = port_driver.as_capture(sig, "cpu")
     setup = port_driver.setup_tracking(
-        cap, s, [_init_for(port_state, s, SAT19)], 8, 8)
+        cap, P(s), [_init_for(port_state, s, SAT19)], 8, 8)
     before = fused_track_block.launches
     st_a, rows_a = fused_track_block(setup.cfg, cap, setup.tables,
                                      setup.consts, setup.state)
@@ -184,16 +187,24 @@ def test_wrapper_runs_plain_version_on_cpu():
                  wb_code_blend="dotprod"),
 ], ids=["b1c_wb_split", "b1c_wb", "b1c_wb_dotprod"])
 def test_unsupported_config_raises_on_cuda_request(settings):
-    """Configurations outside the slice raise NotImplementedError naming
-    themselves, before any device is touched (so also here, without a
-    card), and the kernel's gate refuses them."""
-    sig = np.zeros(10_000_000, np.int8)
+    """B1C wideband is ported: the kernel's gate takes it in each blend
+    (its tables fit one block's shared memory at 99.375 Msps).  What the
+    port does not cover in these settings, complex input, raises
+    NotImplementedError before any device is touched (so also here,
+    without a card), and so does another package's Settings (TypeError):
+    its Signal.B1C is not the port's."""
+    s = P(settings)
+    assert cuda_supported(port_state.make_track_config(s))
+    assert not cuda_supported(port_state.make_track_config(
+        s, complex_input=True))
     init = port_state.ChannelInit(prn=19, acquired_freq=1e6, code_phase=5,
                                   peak_metric=2.0)
-    with pytest.raises(NotImplementedError, match=settings.signal.name):
-        port_driver.track(sig, settings, [init], n_epochs=10,
-                          device="cuda")
-    assert not cuda_supported(port_state.make_track_config(settings))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        port_driver.track(np.zeros((1000, 2), np.int8), s, [init],
+                          n_epochs=10, device="cuda")
+    with pytest.raises(TypeError, match="settings_from_reference"):
+        port_driver.track(np.zeros(1000, np.int8), settings, [init],
+                          n_epochs=10, device="cuda")
 
 
 @pytest.mark.parametrize("capture", [
@@ -206,23 +217,23 @@ def test_unsupported_capture_raises_on_cuda_request(capture):
 
 
 def test_supported_gate():
-    """The CUDA tracking kernel takes B2a in every track mode; it computes
-    the B2a discriminators only, so it refuses B1C, which the plain
-    versions and the bucket path take, and "auto" sends B1C there."""
-    s = b2a_settings(**S10)
+    """The CUDA tracking kernel takes B2a and B1C in every track mode on
+    real input, and "auto" sends them all to it, as the reference sends
+    B1C to its fused kernel on its chip; complex input is refused."""
+    s = P(b2a_settings(**S10))
     assert cuda_supported(port_state.make_track_config(s))
     for mode in (TrackMode.DATA_ONLY, TrackMode.WIDEBAND):
         assert cuda_supported(port_state.make_track_config(
-            b2a_settings(track_mode=mode)))
+            P(b2a_settings(track_mode=mode))))
     assert not cuda_supported(port_state.make_track_config(
         s, complex_input=True))
-    for mode in (TrackMode.DATA_ONLY, TrackMode.NARROWBAND):
+    for mode in TrackMode:
         cfg = port_state.make_track_config(
-            b1c_settings(track_mode=mode, resampling=False))
-        assert reference_supported(cfg) and not cuda_supported(cfg)
-        assert port_driver.choose_correlator(cfg) == "bucket_pallas"
-        with pytest.raises(NotImplementedError, match="B1C"):
-            port_driver.choose_correlator(cfg, "fused")
+            P(b1c_settings(track_mode=mode, resampling=False)))
+        assert reference_supported(cfg) and cuda_supported(cfg)
+        assert port_driver.choose_correlator(cfg) == "fused"
+        assert port_driver.choose_correlator(cfg, "bucket_pallas") == \
+            "bucket_pallas"
     assert port_driver.choose_correlator(
         port_state.make_track_config(s)) == "fused"
     with pytest.raises(ValueError, match="correlator"):
@@ -238,7 +249,7 @@ def test_b2a_mode2_matches_jax_gather():
     ref = ref_driver.track(sig, s, [_init_for(ref_state, s, SAT19)],
                            n_epochs=100, epochs_per_block=50,
                            correlator="gather")
-    port = port_driver.track(sig, s, [_init_for(port_state, s, SAT19)],
+    port = port_driver.track(sig, P(s), [_init_for(port_state, s, SAT19)],
                              n_epochs=100, epochs_per_block=50, device="cpu")
     assert port.correlator == "reference"
     assert sorted(port.outputs) == sorted(ref.outputs)

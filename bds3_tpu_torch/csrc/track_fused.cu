@@ -13,45 +13,84 @@
 // E-L spacing), with the composite pilot and the four code blends
 // (pallas_fused.py:1019-1073, scan.py:243-296).
 //
-// Design.  One thread block per channel.  The W epochs are a loop inside
-// the block: every epoch's window and chip indices depend on the previous
-// epoch's loop-filter output, so the epochs of a channel cannot run in
-// parallel (on the TPU they were the sequential grid axis).  The loop state
-// (8 floats and an int64 absolute cursor) lives in shared memory.  Per
-// epoch, every thread computes the epoch length from that state, then the
-// threads stride over the epoch's samples: load the int8 sample (the
-// warp's loads are coalesced), mix it with the local carrier, and add it,
-// weighted by its chip, into up to 18 sums (I/Q x early/prompt/late x
-// data/pilot BOC(1,1)/pilot BOC(6,1)).  A warp-shuffle and shared-memory
-// reduction gives thread 0 the sums; it runs the discriminators, the
-// 3rd-order PLL and 2nd-order DLL and the phase remainders, writes the
-// packed output row, and updates the shared state.  Each thread's sums
-// are compensated (Kahan) and the block reduces them in float64, so a
-// correlator is its exact sum rounded once to float32, as the plain
-// version's float64 sum is.  The two then agree to float32 rounding, not
-// to the ~1e-3 of mean|Q| that two float32 summation orders of ~1e6
-// samples leave on B1C's small BOC(6,1) Q correlators; and over a long
-// closed loop they stay together (a sum that rounds to another float32
-// moves the loop state, and 250 epochs amplify that to ~5e-3: measured
-// with float32 runs of 32 samples added in float64, which were 15%
-// faster on B2a but not exact enough).  The code tables and
-// the coarse phase tables sit in shared memory: 2 x 10262 int8 plus under
-// 1 KB at the B2a reference rate; at the B1C preset (99.375 Msps) 2 x 20492
-// int8 for the BOC(1,1) tables, 122792 int8 for BOC(6,1) and 245 x 20 bytes
-// of coarse tables, 168676 bytes of the 232448 a block may opt in to.
+// Design.  One thread-block cluster of S blocks per channel, S chosen on
+// the host (fused.py:cluster_size): the largest of 16, 8, 4, 2, 1 for which
+// the card holds all C clusters at once, so no epoch waits for a second
+// wave.  The W epochs are a loop inside every block: each epoch's window
+// and chip indices depend on the previous epoch's loop-filter output, so
+// the epochs of a channel are a chain (on the TPU they were the sequential
+// grid axis); the samples within an epoch are not, and the cluster splits
+// them.  Every block loads its channel's chip tables and coarse tables
+// into its own shared memory and keeps its own copy of the loop state (8
+// floats and an int64 absolute cursor).  Per epoch, every block computes
+// the epoch length n from that state, and cluster rank r takes the
+// contiguous slice [r*ceil(n/S), min(n, (r+1)*ceil(n/S))) of the epoch's
+// samples (fused.py:rank_slice), which keeps the capture reads coalesced.
+// Its threads stride over the slice: load the int8 sample, mix it with
+// the local carrier, and add it, signed by its chip, into up to 18 sums
+// (I/Q x early/prompt/late x data/pilot BOC(1,1)/pilot BOC(6,1)).  The
+// block reduces its threads' sums in float64 (warp shuffles, then one
+// partial per warp) and writes its 18 partials into its own shared memory,
+// double-buffered by epoch parity; then one cluster barrier.  After it,
+// threads 0..17 of every block read the S blocks' partials through
+// distributed shared memory, in rank order, and add them in float64; each
+// sum is rounded to float32 once.  Thread 0 of every block then runs the
+// discriminators, the 3rd-order PLL and 2nd-order DLL and the phase
+// remainders on the same values in the same order, so every block holds
+// bit-identical state without a broadcast or a second cluster barrier;
+// rank 0 alone writes the packed output row, the final state and the
+// cursor.  One barrier per epoch is safe because of the double buffer: a
+// block overwrites parity p in epoch w+2 only after every block has passed
+// the barrier of epoch w+1, which each reaches after its reads of epoch w.
+// A last cluster barrier keeps every block alive until the others have
+// read its shared memory.  S = 1 is one block per channel.
+//
+// Sums.  Every chip table entry is +1 or -1 (the tables are checked by
+// tests/test_torch_fused_geometry.py), so a product cv*x is exactly +-x:
+// each sample's mixed I and Q are converted to float64 once, and each
+// correlator is a float64 running sum to which the sample is added with
+// cv's sign xored into its sign bit (one LOP3 and one DADD; the H100 runs
+// float64 adds at half the float32 rate, against the four float32 adds of
+// a compensated (Kahan) sum: 2-7% faster a block, PERF.md).  The sums of
+// ~1e6 float32 terms then carry float64 rounding only, and each
+// correlator is rounded to float32 once, as the plain version's float64
+// sum of the same terms is: the two agree bit for bit on the card, where
+// two float32 summation orders differ by ~1e-3 of mean|Q| on B1C's small
+// BOC(6,1) Q correlators and 250 closed-loop epochs amplify that.
+// tools/k1_sum_ab.py builds the kernel with compensated float32 sums in
+// place of these (the block marked <acc>) and times both.
+//
+// Chip index.  raw = ck_int + ceil(frac) - 1 lies in (-L*m, 2*L*m) while
+// the loop state is in its normal range (|rem_code| < 1 chip, the code
+// rate within 1e-4 of nominal: fused.py:chip_index_bound), so one
+// conditional add or subtract of L*m replaces the modulo.  Each epoch
+// every block checks from its state that all of the epoch's raw indices
+// are in that range (wraps_once, fused.py:wraps_once mirrors it) and
+// takes the modulo where they may not be: the same result, by a uniform
+// branch.
 //
 // What bounds it.  Each sample costs one sincosf, three chip-index
-// computations (six for B1C wideband) and up to twelve multiply-adds
+// computations (six for B1C wideband) and up to twelve signed float64 adds
 // (eighteen); the int8 capture is read once (about 10^8 bytes per second
-// of signal, far below the card's bandwidth).
-// With one block per channel only C of the 132 SMs work, and each epoch
-// ends in a block-wide reduction and a serial scalar tail, so the kernel is
-// bound by latency, not by bytes or FLOPs.  Spreading an epoch over a
-// thread-block cluster, staging the window with cp.async and capturing
-// the block loop in a CUDA graph are later work.  None of the TPU
-// kernel's machinery is carried over (prefix scratch, MXU one-hot
-// selects, boundary tiles, the 4096-aligned DMA ring): the direct sum here
-// is the same sum as its bucket form, regrouped (scan.py:171-173).
+// of signal, far below the card's bandwidth).  Spread over C*S SMs, the
+// per-sample work shrinks by S; what does not shrink is the per-epoch
+// chain: one block reduction, one cluster barrier, the distributed
+// partial reads and the scalar tail, W times per launch (4-10 us an
+// epoch on the H100, PERF.md).  Staging the
+// window with cp.async and capturing short blocks in a CUDA graph are
+// later work.  None of the TPU kernel's machinery is carried over (prefix
+// scratch, MXU one-hot selects, boundary tiles, the 4096-aligned DMA
+// ring): the direct sum here is the same sum as its bucket form,
+// regrouped (scan.py:171-173).
+//
+// Shared memory of one block (fused.py:_smem_bytes mirrors it): the warp
+// partials (16 x 18 float64), the cluster partials (2 x 18 float64), the
+// cursor, the state and the 18 rounded sums (2,704 bytes in all), then
+// the coarse tables and the carrier table (int32 + 2 float32 per entry),
+// the BOC(6,1) coarse tables where wideband, and the int8 chip tables: at
+// the B1C preset (99.375 Msps, wideband) about 171,000 of the 232,448
+// bytes a block may opt in to.  128 registers a thread allow one block of
+// 512 threads per SM whatever the tables take.
 //
 // Exactness.  The epoch length blksize = q0_int + ceil(resid) and each
 // sample's chip index ceil(frac) must take the same branch as the plain
@@ -77,15 +116,23 @@
 //    where one float32 ulp is 6e-5 of a table entry, so it must round as the
 //    plain version's does: the same operations in the same order.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define N_CANON 41   // values one epoch produces (see TrackParams.slot)
 #define MAX_TAPS 3   // data, pilot BOC(1,1), pilot BOC(6,1)
 #define N_ACC (MAX_TAPS * 6)
 #define THREADS 512
+#define N_WARPS (THREADS / 32)
 #define SPLIT 4096
 #define CODE_PAD 16
+// the block's bookkeeping at the front of its shared memory: warp
+// partials, cluster partials by epoch parity (float64), the cursor, the
+// state and the rounded sums
+#define HEAD_BYTES (N_WARPS * N_ACC * 8 + 2 * N_ACC * 8 + 8 + 8 * 4 + N_ACC * 4)
 
 // canonical value indices (fused.py:_CANON)
 #define V_D 0        // data I_E I_P I_L Q_E Q_P Q_L
@@ -115,14 +162,21 @@ struct TrackParams {
       g61, sm61;
 };
 
-// sum += v with the rounding error carried in c (Kahan); -fmad=false and
-// nvcc's IEEE defaults keep the compensation from being folded away
-__device__ __forceinline__ void kahan_add(float& sum, float& c, float v) {
-  const float y = v - c;
-  const float t = sum + y;
-  c = (t - sum) - y;
-  sum = t;
-}
+// <acc>
+// One correlator's running sum of cv * x over a thread's samples, cv = +-1:
+// x's float64 copy xd with cv's sign bit xored into its own, added in
+// float64.  (x itself is for tools/k1_sum_ab.py's compensated float32
+// variant of this block, which adds cv * x.)
+struct Acc {
+  double s;
+  __device__ __forceinline__ void zero() { s = 0.0; }
+  __device__ __forceinline__ void add(int cv, float x, double xd) {
+    const int hi = __double2hiint(xd) ^ (cv & (int)0x80000000);
+    s += __hiloint2double(hi, __double2loint(xd));
+  }
+  __device__ __forceinline__ double value() const { return s; }
+};
+// </acc>
 
 __device__ __forceinline__ float mod1(float x) {
   float r = fmodf(x, 1.0f);
@@ -197,12 +251,31 @@ __device__ void discriminators(const TrackParams& p, float* v,
   *code_err = code_d * p.dll_f + code_p * p.one_minus_dll_f;
 }
 
-// Chip index (scan.py:85-89): (ck_int + ceil(chi*m) - 1) mod (L*m).
+// Whether every raw chip index of an epoch of n samples lies in
+// (-lm, 2*lm), for a bank whose early and late phases times m are lo_m and
+// hi_m: frac ranges over [lo_m + min(0, (n-1)*dsm), hi_m + 1 +
+// (SPLIT-1)*sm + max(0, (n-1)*dsm)] (ck_frac < 1, r < SPLIT), widened by
+// 2 for the rounding of the per-sample sums; raw >= ceil(frac_lo) - 1 and
+// raw <= lm - 2 + ceil(frac_hi), ck_int being in [0, lm).
+// fused.py:wraps_once mirrors it.
+__device__ __forceinline__ bool wraps_once(float lo_m, float hi_m, float dsm,
+                                           int n, float sm, int lm) {
+  const float dj = (float)(n - 1) * dsm;
+  const float f_lo = (lo_m + fminf(dj, 0.0f)) - 2.0f;
+  const float f_hi =
+      (((hi_m + 1.0f) + (float)(SPLIT - 1) * sm) + fmaxf(dj, 0.0f)) + 2.0f;
+  return f_lo >= (float)(1 - lm) && f_hi <= (float)(lm + 1);
+}
+
+// Chip index (scan.py:85-89): (ck_int + ceil(chi*m) - 1) mod (L*m), with
+// one conditional add or subtract where wraps_once holds.
 __device__ __forceinline__ int chip_index(float base_m, float ck_frac,
                                           int ck_int, float rsm, float jd,
-                                          int lm) {
+                                          int lm, bool once) {
   const float frac = ((base_m + ck_frac) + rsm) + jd;
-  int idx = (ck_int + (int)ceilf(frac) - 1) % lm;
+  const int raw = ck_int + (int)ceilf(frac) - 1;
+  if (once) return raw < 0 ? raw + lm : (raw >= lm ? raw - lm : raw);
+  const int idx = raw % lm;
   return idx < 0 ? idx + lm : idx;
 }
 
@@ -225,8 +298,19 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
                    long long* __restrict__ cursor_out,    // (C,)
                    const TrackParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int c = blockIdx.x / S;
+  const int tid = threadIdx.x;
+
+  double* s_part = reinterpret_cast<double*>(smem);    // [N_WARPS][N_ACC]
+  double* s_rank = s_part + N_WARPS * N_ACC;           // [2][N_ACC]
+  long long* s_cursor = reinterpret_cast<long long*>(s_rank + 2 * N_ACC);
+  float* s_state = reinterpret_cast<float*>(s_cursor + 1);   // [8]
+  float* s_sum = s_state + 8;                                // [N_ACC]
   const int k_wb = p.wideband ? p.k_max : 0;
-  int* s_ck_int = reinterpret_cast<int*>(smem);
+  int* s_ck_int = reinterpret_cast<int*>(smem + HEAD_BYTES);
   float* s_ck_frac = reinterpret_cast<float*>(s_ck_int + p.k_max);
   float* s_carr = s_ck_frac + p.k_max;
   int* s_ck61_int = reinterpret_cast<int*>(s_carr + p.k_max);
@@ -234,34 +318,25 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
   int8_t* s_code = reinterpret_cast<int8_t*>(s_ck61_frac + k_wb);
   int8_t* s_code61 = s_code + p.n_taps * p.table_len;
 
-  __shared__ float s_state[8];
-  __shared__ long long s_cursor;
-  __shared__ double s_part[THREADS / 32][N_ACC];
-  __shared__ float s_sum[N_ACC];
-
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int n_warps = blockDim.x / 32;
-
-  for (int i = tid; i < p.k_max; i += blockDim.x) {
+  for (int i = tid; i < p.k_max; i += THREADS) {
     s_ck_int[i] = ck_int[i];
     s_ck_frac[i] = ck_frac[i];
     s_carr[i] = carr_t[(size_t)c * p.k_max + i];
   }
-  for (int i = tid; i < k_wb; i += blockDim.x) {
+  for (int i = tid; i < k_wb; i += THREADS) {
     s_ck61_int[i] = ck61_int[i];
     s_ck61_frac[i] = ck61_frac[i];
   }
   const int8_t* code_c = code + (size_t)c * p.n_taps * p.table_len;
-  for (int i = tid; i < p.n_taps * p.table_len; i += blockDim.x)
+  for (int i = tid; i < p.n_taps * p.table_len; i += THREADS)
     s_code[i] = code_c[i];
   if (p.wideband) {
     const int8_t* code61_c = code61 + (size_t)c * p.table_len61;
-    for (int i = tid; i < p.table_len61; i += blockDim.x)
+    for (int i = tid; i < p.table_len61; i += THREADS)
       s_code61[i] = code61_c[i];
   }
   if (tid < 8) s_state[tid] = state_in[c * 8 + tid];
-  if (tid == 0) s_cursor = cursor_in[c];
+  if (tid == 0) *s_cursor = cursor_in[c];
   const float ab = a_base[c];
   __syncthreads();
 
@@ -269,7 +344,7 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
   for (int w = 0; w < p.n_epochs; ++w) {
     const float rem_code = s_state[0], rem_cyc = s_state[1];
     const float d_cyc = s_state[2], d_step = s_state[3];
-    const long long cursor = s_cursor;
+    const long long cursor = *s_cursor;
 
     // blksize = ceil((L - rem)/step) (scan.py:125-131)
     const float e_rel = d_step * p.inv_step_base;
@@ -279,6 +354,10 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
     const int delta = (int)ceilf(resid);
     const int blksize = p.q0_int + delta;
     const int n = min(blksize, p.n_max);
+    // this rank's slice of the epoch (fused.py:rank_slice)
+    const int chunk = (max(n, 0) + S - 1) / S;
+    const int lo = min(max(n, 0), rank * chunk);
+    const int hi = min(max(n, 0), lo + chunk);
 
     // early / prompt / late code phase at the epoch start, times m
     const float base[3] = {(rem_code + (-p.spacing)) * mf,
@@ -289,12 +368,16 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
                              (rem_code + p.spacing61) * m61f};
     const float dsm = d_step * mf;
     const float dsm61 = d_step * m61f;
+    const bool once =
+        wraps_once(base[0], base[2], dsm, n, p.sm, p.lm) &&
+        (!p.wideband ||
+         wraps_once(base61[0], base61[2], dsm61, n, p.sm61, p.lm61));
 
-    float acc[N_ACC], comp[N_ACC];
+    Acc acc[N_ACC];
 #pragma unroll
-    for (int i = 0; i < N_ACC; ++i) acc[i] = comp[i] = 0.0f;
+    for (int i = 0; i < N_ACC; ++i) acc[i].zero();
 
-    for (int j = tid; j < n; j += blockDim.x) {
+    for (int j = lo + tid; j < hi; j += THREADS) {
       const long long g = cursor + j;
       const float x = (g >= 0 && g < total) ? (float)capture[g] : 0.0f;
       const int k = j / SPLIT;
@@ -306,18 +389,19 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
       sincosf(p.two_pi * cyc, &sn, &cs);
       const float ib = x * cs;
       const float qb = -(x * sn);
+      const double ib_d = (double)ib, qb_d = (double)qb;
       const float rsm = r_f * p.sm;
       const float jd = j_f * dsm;
 #pragma unroll
       for (int e = 0; e < 3; ++e) {
         const int idx = chip_index(base[e], s_ck_frac[k], s_ck_int[k], rsm,
-                                   jd, p.lm);
+                                   jd, p.lm, once);
 #pragma unroll
         for (int t = 0; t < 2; ++t) {
           if (t < p.n_taps) {
-            const float cv = (float)s_code[t * p.table_len + idx + CODE_PAD];
-            kahan_add(acc[t * 6 + e], comp[t * 6 + e], cv * ib);
-            kahan_add(acc[t * 6 + 3 + e], comp[t * 6 + 3 + e], cv * qb);
+            const int cv = s_code[t * p.table_len + idx + CODE_PAD];
+            acc[t * 6 + e].add(cv, ib, ib_d);
+            acc[t * 6 + 3 + e].add(cv, qb, qb_d);
           }
         }
       }
@@ -327,103 +411,177 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
         const float jd61 = j_f * dsm61;
 #pragma unroll
         for (int e = 0; e < 3; ++e) {
-          const int idx = chip_index(base61[e], s_ck61_frac[k], s_ck61_int[k],
-                                     rsm61, jd61, p.lm61);
-          const float cv = (float)s_code61[idx + CODE_PAD];
-          kahan_add(acc[12 + e], comp[12 + e], cv * ib);
-          kahan_add(acc[15 + e], comp[15 + e], cv * qb);
+          const int idx = chip_index(base61[e], s_ck61_frac[k],
+                                     s_ck61_int[k], rsm61, jd61, p.lm61,
+                                     once);
+          const int cv = s_code61[idx + CODE_PAD];
+          acc[12 + e].add(cv, ib, ib_d);
+          acc[15 + e].add(cv, qb, qb_d);
         }
       }
     }
 
-    // block reduction in float64: warp shuffles, then one partial per
-    // warp; each sum is rounded to float32 once, at the end
+    // the block's partials in float64: warp shuffles, then one partial
+    // per warp, summed in warp order into this epoch's parity buffer
 #pragma unroll
     for (int i = 0; i < N_ACC; ++i) {
-      double v = (double)acc[i] - (double)comp[i];
+      double v = acc[i].value();
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-      if ((tid & 31) == 0) s_part[tid >> 5][i] = v;
+      if ((tid & 31) == 0) s_part[(tid >> 5) * N_ACC + i] = v;
     }
     __syncthreads();
+    double* mine = s_rank + (w & 1) * N_ACC;
     if (tid < N_ACC) {
       double v = 0.0;
-      for (int wi = 0; wi < n_warps; ++wi) v += s_part[wi][tid];
-      s_sum[tid] = (float)v;
+      for (int wi = 0; wi < N_WARPS; ++wi) v += s_part[wi * N_ACC + tid];
+      mine[tid] = v;
     }
-    __syncthreads();
+    cluster.sync();
 
-    if (tid == 0) {
-      float v[N_CANON];
+    if (tid < 32) {
+      // the cluster's partials in rank order, rounded once
+      if (tid < N_ACC) {
+        double v = 0.0;
+        for (int q = 0; q < S; ++q) v += cluster.map_shared_rank(mine, q)[tid];
+        s_sum[tid] = (float)v;
+      }
+      __syncwarp();
+      if (tid == 0) {
+        float v[N_CANON];
 #pragma unroll
-      for (int i = 0; i < N_ACC; ++i) v[i] = s_sum[i];
-      float carr_err, code_err;
-      discriminators(p, v, &carr_err, &code_err);
-      const float code_nco = s_state[4], code_error = s_state[5];
-      const float d1_carr = s_state[6], d2_carr = s_state[7];
+        for (int i = 0; i < N_ACC; ++i) v[i] = s_sum[i];
+        float carr_err, code_err;
+        discriminators(p, v, &carr_err, &code_err);
+        const float code_nco = s_state[4], code_error = s_state[5];
+        const float d1_carr = s_state[6], d2_carr = s_state[7];
 
-      // loop filters (scan.py:298-306)
-      const float d2_new = d2_carr + carr_err * p.pf3;
-      const float d1_new = (d2_new + carr_err * p.pf2) + d1_carr;
-      const float carr_nco = d1_new + carr_err * p.pf1;
-      const float d_cyc_new = carr_nco * p.inv_fs;
-      const float code_nco_new =
-          (code_nco + p.dll_c1 * (code_err - code_error)) + code_err * p.dll_c2;
-      const float d_step_new = init_dstep[c] - code_nco_new * p.inv_fs;
+        // loop filters (scan.py:298-306)
+        const float d2_new = d2_carr + carr_err * p.pf3;
+        const float d1_new = (d2_new + carr_err * p.pf2) + d1_carr;
+        const float carr_nco = d1_new + carr_err * p.pf1;
+        const float d_cyc_new = carr_nco * p.inv_fs;
+        const float code_nco_new =
+            (code_nco + p.dll_c1 * (code_err - code_error)) +
+            code_err * p.dll_c2;
+        const float d_step_new = init_dstep[c] - code_nco_new * p.inv_fs;
 
-      // phase remainders (scan.py:308-317)
-      const float delta_f = (float)delta, blk_f = (float)blksize;
-      const float rem_cyc_new =
-          mod1(((rem_cyc + q0_cyc[c]) + delta_f * ab) + blk_f * d_cyc);
-      const float rem_code_new =
-          ((rem_code + p.q0_step_minus_l) + delta_f * p.step_base) +
-          blk_f * d_step;
+        // phase remainders (scan.py:308-317)
+        const float delta_f = (float)delta, blk_f = (float)blksize;
+        const float rem_cyc_new =
+            mod1(((rem_cyc + q0_cyc[c]) + delta_f * ab) + blk_f * d_cyc);
+        const float rem_code_new =
+            ((rem_code + p.q0_step_minus_l) + delta_f * p.step_base) +
+            blk_f * d_step;
 
-      float* t = v + V_TAIL;
-      t[0] = carr_err;
-      t[1] = code_err;
-      t[2] = carr_nco;
-      t[3] = code_nco_new;
-      t[4] = d_cyc;
-      t[5] = d_step;
-      t[6] = rem_code;
-      t[7] = rem_cyc;
-      t[8] = blk_f;
-      float* s = v + V_STATE;
-      s[0] = rem_code_new;
-      s[1] = rem_cyc_new;
-      s[2] = d_cyc_new;
-      s[3] = d_step_new;
-      s[4] = code_nco_new;
-      s[5] = code_err;
-      s[6] = d1_new;
-      s[7] = d2_new;
-      float* row = out + ((size_t)w * p.n_channels + c) * p.n_slots;
+        float* t = v + V_TAIL;
+        t[0] = carr_err;
+        t[1] = code_err;
+        t[2] = carr_nco;
+        t[3] = code_nco_new;
+        t[4] = d_cyc;
+        t[5] = d_step;
+        t[6] = rem_code;
+        t[7] = rem_cyc;
+        t[8] = blk_f;
+        float* s = v + V_STATE;
+        s[0] = rem_code_new;
+        s[1] = rem_cyc_new;
+        s[2] = d_cyc_new;
+        s[3] = d_step_new;
+        s[4] = code_nco_new;
+        s[5] = code_err;
+        s[6] = d1_new;
+        s[7] = d2_new;
+        if (rank == 0) {
+          float* row = out + ((size_t)w * p.n_channels + c) * p.n_slots;
 #pragma unroll
-      for (int i = 0; i < N_CANON; ++i)
-        if (p.slot[i] >= 0) row[p.slot[i]] = v[i];
+          for (int i = 0; i < N_CANON; ++i)
+            if (p.slot[i] >= 0) row[p.slot[i]] = v[i];
+        }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) s_state[i] = s[i];
-      s_cursor = cursor + blksize;
+        for (int i = 0; i < 8; ++i) s_state[i] = s[i];
+        *s_cursor = cursor + blksize;
+      }
     }
     __syncthreads();
   }
 
-  if (tid < 8) state_out[c * 8 + tid] = s_state[tid];
-  if (tid == 0) cursor_out[c] = s_cursor;
+  // no block leaves while another may still read its partials
+  cluster.sync();
+  if (rank == 0) {
+    if (tid < 8) state_out[c * 8 + tid] = s_state[tid];
+    if (tid == 0) cursor_out[c] = *s_cursor;
+  }
 }
 
-// Dynamic shared memory of one block: the coarse tables and the carrier
-// table (int32 + 2 float32 per entry), the BOC(6,1) coarse tables where
+// Dynamic shared memory of one block (the kernel has no static shared
+// memory): the bookkeeping, the coarse tables and the carrier table
+// (int32 + 2 float32 per entry), the BOC(6,1) coarse tables where
 // wideband, and the int8 chip tables.
 static size_t smem_bytes(const TrackParams& p) {
-  size_t b = (size_t)p.k_max * 12 + (size_t)p.n_taps * p.table_len;
+  size_t b = HEAD_BYTES + (size_t)p.k_max * 12 +
+             (size_t)p.n_taps * p.table_len;
   if (p.wideband) b += (size_t)p.k_max * 8 + (size_t)p.table_len61;
   return b;
 }
 
-// Host entry point, called through ctypes.  Launches on `stream` and does
-// not synchronize; returns cudaGetLastError() (0 on success).
+static cudaError_t set_attributes(size_t smem) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      track_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  // clusters of 16 are beyond the portable 8
+  return cudaFuncSetAttribute(track_fused_kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
+}
+
+// C*S blocks of THREADS threads as C clusters of S blocks.
+static cudaLaunchConfig_t launch_config(const TrackParams& p, int cluster,
+                                        size_t smem, cudaStream_t stream,
+                                        cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.n_channels * cluster, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// For each cluster size sizes[i], how many clusters of it the card holds
+// at once with this config's shared memory and block size
+// (cudaOccupancyMaxActiveClusters); -(error code) where the query fails
+// (a size the card does not take).  Returns 0, or the error of setting the
+// kernel's attributes.
+extern "C" int bds3_track_cluster_occupancy(const TrackParams* params,
+                                            int n_sizes, const int* sizes,
+                                            int* counts) {
+  const TrackParams p = *params;
+  const size_t smem = smem_bytes(p);
+  const cudaError_t err = set_attributes(smem);
+  if (err != cudaSuccess) return (int)err;
+  for (int i = 0; i < n_sizes; ++i) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = launch_config(p, sizes[i], smem, 0, &attr);
+    int n = 0;
+    const cudaError_t e =
+        cudaOccupancyMaxActiveClusters(&n, track_fused_kernel, &cfg);
+    counts[i] = e == cudaSuccess ? n : -(int)e;
+    cudaGetLastError();   // a refused size is an answer, not a fault
+  }
+  return 0;
+}
+
+// Host entry point, called through ctypes.  Launches C clusters of
+// `cluster` blocks on `stream` and does not synchronize; returns the
+// launch's error, else cudaGetLastError() (0 on success).
 extern "C" int bds3_track_fused(const void* capture, long long total,
                                 const void* code, const void* ck_int,
                                 const void* ck_frac, const void* code61,
@@ -432,21 +590,26 @@ extern "C" int bds3_track_fused(const void* capture, long long total,
                                 const void* q0_cyc, const void* init_dstep,
                                 const void* state_in, const void* cursor_in,
                                 void* out, void* state_out, void* cursor_out,
-                                const TrackParams* params, void* stream) {
+                                int cluster, const TrackParams* params,
+                                void* stream) {
   const TrackParams p = *params;
   const size_t smem = smem_bytes(p);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        track_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  track_fused_kernel<<<p.n_channels, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)capture, total, (const int8_t*)code, (const int*)ck_int,
-      (const float*)ck_frac, (const int8_t*)code61, (const int*)ck61_int,
-      (const float*)ck61_frac, (const float*)carr_t, (const float*)a_base,
-      (const float*)q0_cyc, (const float*)init_dstep, (const float*)state_in,
+  cudaError_t err = set_attributes(smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(p, cluster, smem, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(
+      &cfg, track_fused_kernel, (const int8_t*)capture, total,
+      (const int8_t*)code, (const int*)ck_int, (const float*)ck_frac,
+      (const int8_t*)code61, (const int*)ck61_int, (const float*)ck61_frac,
+      (const float*)carr_t, (const float*)a_base, (const float*)q0_cyc,
+      (const float*)init_dstep, (const float*)state_in,
       (const long long*)cursor_in, (float*)out, (float*)state_out,
       (long long*)cursor_out, p);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // reported here; not left for the next launch
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }

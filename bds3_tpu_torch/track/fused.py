@@ -2,15 +2,26 @@
 `bds3_tpu/track/pallas_fused.py`).
 
 `fused_track_block` runs one block of W closed-loop epochs for all
-channels in one launch of `csrc/track_fused.cu` (design notes there).  On
-CPU tensors it runs the plain version, `scan.track_block_reference`; on
-CUDA tensors it launches the kernel or raises.  It never falls back.
+channels in one launch of `csrc/track_fused.cu` (design notes there): C
+thread-block clusters of S blocks, one cluster per channel, each block
+summing a contiguous slice of every epoch (`rank_slice`).  S is chosen
+once per (config, channel count) from the card's own occupancy answer
+(`cluster_size`).  On CPU tensors it runs the plain version,
+`scan.track_block_reference`; on CUDA tensors it launches the kernel or
+raises.  It never falls back.
+
+The host-side geometry the kernel mirrors lives here too, in plain
+Python, so the CPU tests reach it: the slices (`rank_slice`), the choice
+of S (`choose_cluster`), the chip-index range check (`wraps_once`,
+`chip_index_bound`) and the shared-memory layout (`_smem_bytes`).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
+import numpy as np
 import torch
 
 from bds3_tpu_torch.config import Signal
@@ -25,13 +36,26 @@ from bds3_tpu_torch.track.scan import (
     slot_names,
     track_block_reference,
 )
-from bds3_tpu_torch.track.state import TrackConfig
+from bds3_tpu_torch.track.state import SPLIT, TrackConfig
 from bds3_tpu_torch.utils.device import check_tensor
 
 KERNEL_NAME = "track_fused_cuda"
 SOURCE = "bds3_tpu_torch/csrc/track_fused.cu"
 REPLACES = "bds3_tpu/track/pallas_fused.py:1153"   # the TPU kernel
 SMEM_LIMIT = 227 * 1024   # dynamic shared memory one H100 block may use
+THREADS = 512             # threads of one block (track_fused.cu THREADS)
+N_ACC = 18                # correlator sums (track_fused.cu N_ACC)
+# the block's bookkeeping (track_fused.cu HEAD_BYTES): warp partials and
+# cluster partials by epoch parity in float64, the cursor, the state and
+# the rounded sums
+HEAD_BYTES = (THREADS // 32) * N_ACC * 8 + 2 * N_ACC * 8 + 8 + 8 * 4 \
+    + N_ACC * 4
+CLUSTER_SIZES = (16, 8, 4, 2, 1)   # the cluster sizes tried, largest first
+# the loop state's normal range, under which every raw chip index of an
+# epoch lies in (-L*m, 2*L*m): |rem_code| < 1 chip (ChannelState) and the
+# code rate within DSTEP_REL of nominal (a 10 kHz Doppler is 8.5e-6 on
+# B2a); outside it the kernel takes the modulo instead (wraps_once)
+DSTEP_REL = 1e-4
 
 # the values one epoch produces, in the kernel's order (TrackParams.slot)
 _TAP = [f"{c}{t}" for c in ("i", "q") for t in ("e", "p", "l")]
@@ -68,8 +92,9 @@ def _table_len(cfg: TrackConfig, m: int) -> int:
 
 
 def _smem_bytes(cfg: TrackConfig) -> int:
-    """The kernel's dynamic shared memory (track_fused.cu:smem_bytes)."""
-    b = cfg.k_max * 12 + (2 if cfg.use_pilot else 1) \
+    """One block's shared memory, all of it dynamic
+    (track_fused.cu:smem_bytes): the bookkeeping, then the tables."""
+    b = HEAD_BYTES + cfg.k_max * 12 + (2 if cfg.use_pilot else 1) \
         * _table_len(cfg, cfg.m_data)
     if cfg.wideband:
         b += cfg.k_max * 8 + _table_len(cfg, cfg.m_p61)
@@ -80,8 +105,68 @@ def cuda_supported(cfg: TrackConfig) -> bool:
     """Whether the CUDA kernel takes this config (the port's counterpart of
     `fused_supported`): B2a and B1C in any track mode, real input, with the
     code tables within one block's shared memory (B1C wideband at the
-    99.375 Msps preset takes 168676 of the 232448 bytes)."""
+    99.375 Msps preset takes about 171,000 of the 232,448 bytes)."""
     return reference_supported(cfg) and _smem_bytes(cfg) <= SMEM_LIMIT
+
+
+def rank_slice(n: int, cluster: int, rank: int) -> tuple[int, int]:
+    """The samples [lo, hi) of an n-sample epoch that cluster rank `rank`
+    of `cluster` sums (track_fused.cu): contiguous slices of
+    ceil(n / cluster)."""
+    chunk = -(-n // cluster)
+    lo = min(n, rank * chunk)
+    return lo, min(n, lo + chunk)
+
+
+def choose_cluster(counts: dict, n_channels: int) -> int:
+    """The largest cluster size S whose count of co-resident clusters
+    (cudaOccupancyMaxActiveClusters; negative where the card refused the
+    size) holds all n_channels clusters at once; 1 where none does (one
+    block per channel needs no co-residence)."""
+    for size in sorted(counts, reverse=True):
+        if counts[size] >= n_channels:
+            return size
+    return 1
+
+
+def wraps_once(lo_m, hi_m, dsm, n, sm, lm) -> bool:
+    """track_fused.cu:wraps_once in float32: whether every raw chip index
+    ck_int + ceil(frac) - 1 of an n-sample epoch lies in (-lm, 2*lm), for a
+    bank whose early and late code phases times m are lo_m and hi_m and
+    whose per-sample slope times m is dsm."""
+    f = np.float32
+    dj = f(n - 1) * f(dsm)
+    f_lo = (f(lo_m) + min(dj, f(0))) - f(2)
+    f_hi = (((f(hi_m) + f(1)) + f(SPLIT - 1) * f(sm)) + max(dj, f(0))) + f(2)
+    return bool(f_lo >= f(1 - lm) and f_hi <= f(lm + 1))
+
+
+def banks(cfg: TrackConfig) -> list[tuple]:
+    """(m, E-L spacing, sm, loop_constants suffix) of each bank of taps
+    that share a chip grid: the data and BOC(1,1) taps, and B1C
+    wideband's BOC(6,1) tap."""
+    k = loop_constants(cfg)
+    out = [(cfg.m_data, k["spacing"], k["sm"], "")]
+    if cfg.wideband:
+        out.append((cfg.m_p61, k["spacing61"], k["sm61"], "61"))
+    return out
+
+
+def chip_index_bound(cfg: TrackConfig, rem_code: float = 1.0,
+                     dstep_rel: float = DSTEP_REL) -> list[tuple]:
+    """For each bank, (lo, hi, L*m): bounds of the raw chip index
+    ck_int + ceil(frac) - 1 over any epoch whose |rem_code| <= rem_code
+    chips and |d_step| <= dstep_rel * step_base.  frac = (rem_code + off)*m
+    + ck_frac + r*sm + j*d_step*m with ck_frac in [0, 1), r < SPLIT and
+    j < n_max; ck_int is in [0, L*m)."""
+    out = []
+    for m, spacing, sm, _ in banks(cfg):
+        lm = cfg.code_length * m
+        dj = cfg.n_max * dstep_rel * cfg.step_base * m
+        f_lo = -(rem_code + spacing) * m - dj
+        f_hi = (rem_code + spacing) * m + 1 + (SPLIT - 1) * sm + dj
+        out.append((math.ceil(f_lo) - 1, lm - 2 + math.ceil(f_hi), lm))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,12 +200,45 @@ def _entry():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 15
-                   + [ctypes.POINTER(_Params), ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.POINTER(_Params),
+                      ctypes.c_void_p])
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def cluster_occupancy(cfg: TrackConfig, n_channels: int,
+                      device_index: int) -> dict:
+    """{S: clusters of S blocks the card holds at once} for this config's
+    shared memory and block size (cudaOccupancyMaxActiveClusters), for each
+    of CLUSTER_SIZES; negative where the card refuses the size."""
+    from bds3_tpu_torch._build import library
+
+    fn = library().bds3_track_cluster_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    n = len(CLUSTER_SIZES)
+    sizes = (ctypes.c_int * n)(*CLUSTER_SIZES)
+    counts = (ctypes.c_int * n)()
+    with torch.cuda.device(device_index):
+        err = fn(ctypes.byref(_params(cfg, n_channels)), n, sizes, counts)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL_NAME}: setting the kernel's attributes "
+                           f"failed: CUDA error {err}")
+    return dict(zip(CLUSTER_SIZES, counts))
+
+
+def cluster_size(cfg: TrackConfig, n_channels: int,
+                 device_index: int) -> int:
+    """The cluster size the kernel runs this config with (choose_cluster
+    over the card's cluster_occupancy)."""
+    return choose_cluster(cluster_occupancy(cfg, n_channels, device_index),
+                          n_channels)
+
+
 def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
-                      tables: TrackTables, consts, state: TrackState
+                      tables: TrackTables, consts, state: TrackState,
+                      _cluster: int | None = None
                       ) -> tuple[TrackState, torch.Tensor]:
     """W = cfg.epochs_per_block epochs for all channels in one launch.
 
@@ -128,6 +246,9 @@ def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
     on.  consts: ChannelConsts of tensors.  Returns (new TrackState, rows
     (W, C, len(slot_names(cfg))) float32), like track_block_reference.
     The launch is on the current stream and is not synchronized.
+    _cluster: blocks per channel; None takes cluster_size.  Only for
+    checks and A/B timings of the geometry; a size the card refuses
+    raises.
     """
     if not cuda_supported(cfg):
         raise NotImplementedError(
@@ -166,6 +287,8 @@ def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
     check_tensor("state.statef", state.statef, torch.float32, (C, 8), dev)
 
     params = _params(cfg, C)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    cluster = _cluster or cluster_size(cfg, C, index)
     rows = torch.empty((cfg.epochs_per_block, C, params.n_slots),
                        dtype=torch.float32, device=dev)
     statef = torch.empty_like(state.statef)
@@ -179,9 +302,11 @@ def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
             consts.q0_cyc.data_ptr(), consts.init_dstep.data_ptr(),
             state.statef.data_ptr(), state.cursor.data_ptr(),
             rows.data_ptr(), statef.data_ptr(), cursor.data_ptr(),
-            ctypes.byref(params), torch.cuda.current_stream(dev).cuda_stream)
+            cluster, ctypes.byref(params),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{KERNEL_NAME} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{KERNEL_NAME} launch of {C} clusters of "
+                           f"{cluster} blocks failed: CUDA error {err}")
     fused_track_block.launches += 1
     return TrackState(cursor, statef), rows
 

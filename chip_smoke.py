@@ -9,18 +9,27 @@ It builds the port's CUDA kernels from `bds3_tpu_torch/csrc`, holds each
 kernel against its plain PyTorch version on the card, and drives the
 port's main path through its public entry points:
 
-  1. build   nvcc build of the kernels; the card's name and power limit.
+  1. build   nvcc build of the kernels; the card's name and power limit;
+             K1's cluster size (blocks per channel) at the preset, B1C
+             narrowband and B2a 12 channels, with the card's
+             cudaOccupancyMaxActiveClusters for each size tried: the
+             preset and B2a must run clusters (S > 1).
   2. kernel  fused_track_block against track_block_reference on the card:
              (a) 10 Msps, 2 satellites, 30 epochs; (b) 99.375 Msps,
              12 channels, 20 epochs.  blksize and cursors must be equal,
              correlators and discriminators within 1e-3 of |a|.mean()+1.
+             Every K1 check here and below runs K1 at 1 and 2 blocks per
+             channel and at the chosen cluster size against one plain
+             block (K1_CLUSTERS).
   3. receiver  run_receiver on the synthesized 20 Msps, 11.5 s,
              5-satellite scenario (seeds 3 and 1): 5 channels, the kernel
              launched, >= 3 fixes, median 3D error < 1 m; then the kernel
              against its plain version on one block at these shapes.
   4. full-rate  99.375 Msps, 2.2 s, 4 satellites: acquisition over PRNs
              1-63 must detect exactly those 4; 12 channels tracked for
-             2000 epochs must all lock; kernel and plain-version times.
+             2000 epochs must all lock; kernel times at one block per
+             channel and at the chosen cluster size in turns (S1, S, S,
+             S1), the plain version's time, K1's bound.
              Then the same 2000 epochs through the prefix-sum path
              (track(correlator="bucket_pallas"), the mix+prefix kernel):
              12/12 locked, real-time factor beside the tracking kernel's.
@@ -40,8 +49,9 @@ port's main path through its public entry points:
              satellites, one 20-epoch block: narrowband, and wideband in
              each code blend (composite, nb, split, dotprod).  blksize and
              cursors equal, correlators (with the BOC(6,1) and composite
-             pilot) within 1e-3 of |a|.mean()+1; kernel and plain block
-             times and the kernel's bound.
+             pilot) within 1e-3 of |a|.mean()+1; kernel block times at
+             one block per channel and at the chosen cluster size in
+             turns, the plain version's, and the kernel's bound.
   8. B1C acquisition  b1c_settings() (resampled) over PRNs 1-63 on the
              2.2 s 99.375 Msps capture: exactly the 4 satellites; the
              card's resampler within 5e-3 of the host scipy filter in
@@ -348,23 +358,27 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare_block(cfg, capture, setup, label: str, kernel: str = "fused",
-                  plain=None, tol: float = TOL) -> dict:
-    """One block through a kernel path (a driver.BLOCK_FNS name) and
-    through `plain` (a block function; by default the path's plain
-    version, track_block_reference), from the same state, on the card;
-    asserts agreement within `tol`."""
+# K1's cluster sizes held to its plain version: one block per channel, a
+# cluster of two, and the size the wrapper chooses (None)
+K1_CLUSTERS = (1, 2, None)
+
+
+def k1_cluster(setup) -> int:
+    """The cluster size K1 runs `setup` with (fused.cluster_size)."""
     import torch
 
-    from bds3_tpu_torch.track.driver import BLOCK_FNS
-    from bds3_tpu_torch.track.scan import track_block_reference, unpack_rows
+    from bds3_tpu_torch.track.fused import cluster_size
 
-    plain = plain or track_block_reference
-    st_k, rows_k = BLOCK_FNS[kernel](cfg, capture, setup.tables,
-                                     setup.consts, setup.state)
-    st_r, rows_r = plain(cfg, capture, setup.tables, setup.consts,
-                         setup.state)
-    torch.cuda.synchronize()
+    return cluster_size(setup.cfg, int(setup.state.cursor.shape[0]),
+                        torch.cuda.current_device())
+
+
+def _agreement(cfg, label, st_k, rows_k, st_r, rows_r, tol) -> dict:
+    """Asserts a kernel's block against its plain version's within `tol`."""
+    import torch
+
+    from bds3_tpu_torch.track.scan import unpack_rows
+
     k = {n: v.cpu().numpy() for n, v in unpack_rows(cfg, rows_k).items()}
     r = {n: v.cpu().numpy() for n, v in unpack_rows(cfg, rows_r).items()}
     if not np.array_equal(k["blksize"], r["blksize"]):
@@ -389,6 +403,42 @@ def compare_block(cfg, capture, setup, label: str, kernel: str = "fused",
             "channels": int(k["blksize"].shape[1])}
 
 
+def compare_block(cfg, capture, setup, label: str, kernel: str = "fused",
+                  plain=None, tol: float = TOL) -> dict:
+    """One block through a kernel path (a driver.BLOCK_FNS name) and
+    through `plain` (a block function; by default the path's plain
+    version, track_block_reference), from the same state, on the card;
+    asserts agreement within `tol`.  K1 ("fused") runs at each of
+    K1_CLUSTERS against the one plain block; the result is the worst of
+    them, with each size's scaled error under "by_cluster"."""
+    import functools
+
+    import torch
+
+    from bds3_tpu_torch.track.driver import BLOCK_FNS
+    from bds3_tpu_torch.track.scan import track_block_reference
+
+    plain = plain or track_block_reference
+    args = (cfg, capture, setup.tables, setup.consts, setup.state)
+    st_r, rows_r = plain(*args)
+    fns = {"": BLOCK_FNS[kernel]}
+    if kernel == "fused":
+        fns = {str(S or f"auto_{k1_cluster(setup)}"):
+               functools.partial(BLOCK_FNS[kernel], _cluster=S)
+               for S in K1_CLUSTERS}
+    res = {}
+    for name, fn in fns.items():
+        st_k, rows_k = fn(*args)
+        torch.cuda.synchronize()
+        res[name] = _agreement(cfg, f"{label} {name}".strip(), st_k, rows_k,
+                               st_r, rows_r, tol)
+    out = max(res.values(), key=lambda r: r["max_scaled_err"])
+    out = {**out, "max_abs_err": max(r["max_abs_err"] for r in res.values())}
+    if kernel == "fused":
+        out["by_cluster"] = {n: r["max_scaled_err"] for n, r in res.items()}
+    return out
+
+
 def time_call(fn, reps: int) -> float:
     """Mean ms per call of fn(), CUDA events, after one warm call."""
     import torch
@@ -409,6 +459,27 @@ def time_block(fn, setup, capture, reps: int) -> float:
     """Mean ms per call of one block function, CUDA events."""
     return time_call(lambda: fn(setup.cfg, capture, setup.tables,
                                 setup.consts, setup.state), reps)
+
+
+def time_k1_clusters(setup, capture, reps: int) -> dict:
+    """K1's block at one block per channel and at the chosen cluster size,
+    in turns (S1, S, S, S1), each a time_block of `reps` calls: the mean
+    ms of each, the chosen size, and the speed-up."""
+    import functools
+
+    from bds3_tpu_torch.track.fused import fused_track_block
+
+    S = k1_cluster(setup)
+    fns = {1: functools.partial(fused_track_block, _cluster=1),
+           S: functools.partial(fused_track_block, _cluster=S)}
+    turns = {1: [], S: []}
+    for size in (1, S, S, 1):
+        turns[size].append(time_block(fns[size], setup, capture, reps))
+    ms = {size: float(np.mean(t)) for size, t in turns.items()}
+    return {"cluster": S, "kernel_block_ms": ms[S],
+            "kernel_block_ms_cluster1": ms[1],
+            "kernel_block_ms_turns": {str(k): v for k, v in turns.items()},
+            "cluster_speedup": ms[1] / ms[S]}
 
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): FP32 outside
@@ -461,8 +532,36 @@ def phase_build() -> float:
     ptxas = [ln.strip() for ln in log.read_text().splitlines()
              if "registers" in ln or "spill" in ln] if log.exists() else []
     emit({"phase": "build", "seconds": dt, "ptxas": ptxas,
-          "torch": __import__("torch").__version__})
+          "torch": __import__("torch").__version__,
+          "k1_clusters": k1_cluster_choice()})
     return dt
+
+
+def k1_cluster_choice() -> dict:
+    """K1's cluster size at the main shapes (20-epoch blocks): the card's
+    cudaOccupancyMaxActiveClusters for each size tried and the size chosen;
+    fails unless the preset and B2a at 12 channels run clusters."""
+    import torch
+
+    from bds3_tpu_torch.track import fused
+    from bds3_tpu_torch.track.state import make_track_config
+
+    dev = torch.cuda.current_device()
+    out = {}
+    for label, s, n_ch in (("b1c_wb_preset_10ch", b1c_preset_settings(), 10),
+                           ("b1c_nb_10ch", b1c_full_settings(), 10),
+                           ("b2a_12ch", full_settings(), 12)):
+        cfg = make_track_config(s, epochs_per_block=20)
+        occ = fused.cluster_occupancy(cfg, n_ch, dev)
+        out[label] = {"channels": n_ch,
+                      "max_active_clusters": {str(k): v
+                                              for k, v in occ.items()},
+                      "chosen": fused.cluster_size(cfg, n_ch, dev),
+                      "smem_bytes": fused._smem_bytes(cfg)}
+    for label in ("b1c_wb_preset_10ch", "b2a_12ch"):
+        if out[label]["chosen"] <= 1:
+            raise AssertionError(f"K1 chose no cluster at {label}: {out}")
+    return out
 
 
 def phase_kernel_small() -> dict:
@@ -536,11 +635,11 @@ def phase_kernel_b1c(caps: Captures) -> dict:
             cur = setup.state.cursor.cpu().numpy()
             span = int((cur + blk.sum(axis=0)).max() - cur.min())
             res.update(
-                kernel_block_ms=time_block(fused_track_block, setup,
-                                           capture, reps=5),
+                **time_k1_clusters(setup, capture, reps=5),
                 plain_block_ms=time_block(track_block_reference, setup,
                                           capture, reps=2),
                 **track_fused_bound(setup.cfg, blk, span))
+            res["bound_share"] = res["bound_ms"] / res["kernel_block_ms"]
         out[label] = {**res, "seconds": time.perf_counter() - t0}
     emit(out)
     return out
@@ -637,7 +736,7 @@ def phase_full_rate(caps: Captures) -> dict:
     from bds3_tpu_torch.track.driver import (
         as_capture, assemble_results, run_blocks, setup_tracking, track)
     from bds3_tpu_torch.track.fused import fused_track_block
-    from bds3_tpu_torch.track.scan import track_block_reference
+    from bds3_tpu_torch.track.scan import track_block_reference, unpack_rows
 
     s = full_settings()
     sig = caps.get("full")
@@ -680,7 +779,13 @@ def phase_full_rate(caps: Captures) -> dict:
     plain = assemble_results(setup, rows, s, n_ep, "reference")
     plain_s = time.perf_counter() - t0
 
-    kernel_ms = time_block(fused_track_block, setup, capture, reps=3)
+    k1 = time_k1_clusters(setup, capture, reps=2)
+    _, rows = fused_track_block(setup.cfg, capture, setup.tables,
+                                setup.consts, setup.state)
+    blk = unpack_rows(setup.cfg, rows)["blksize"].cpu().numpy()
+    cur = setup.state.cursor.cpu().numpy()
+    bound = track_fused_bound(setup.cfg, blk,
+                              int((cur + blk.sum(axis=0)).max() - cur.min()))
     plain_ms = time_block(track_block_reference, setup, capture, reps=1)
     seconds_tracked = n_ep * s.int_time
     out = {"phase": "track_99msps_12ch", "epochs": n_ep, "channels": 12,
@@ -690,7 +795,8 @@ def phase_full_rate(caps: Captures) -> dict:
            "plain_track_s": plain_s,
            "plain_realtime_factor": seconds_tracked / plain_s,
            "plain_locked": lock_count(plain, 500),
-           "kernel_block_ms": kernel_ms, "plain_block_ms": plain_ms}
+           **k1, "plain_block_ms": plain_ms, **bound,
+           "bound_share": bound["bound_ms"] / k1["kernel_block_ms"]}
     emit(out)
 
     # the same 2000 epochs through the prefix-sum path and its kernel
@@ -1183,6 +1289,9 @@ def main() -> int:
              rx_wb["cmp"]["max_abs_err"]]
             + [k1_b1c[c]["max_abs_err"] for c in k1_b1c if c != "phase"]),
         # one W = 20 block of the preset (wideband composite, 10 channels)
+        # at the chosen cluster size, and at one block per channel
+        "cluster": k1["cluster"],
+        "ms_cluster1": k1["kernel_block_ms_cluster1"],
         "ms": k1["kernel_block_ms"],
         "plain_ms": k1["plain_block_ms"],
         "bound_ms": k1["bound_ms"],

@@ -71,14 +71,21 @@ def _rows(cfg, rows):
     return {n: v.cpu().numpy() for n, v in unpack_rows(cfg, rows).items()}
 
 
+# blocks per channel: one, a cluster of two, and the size the wrapper
+# chooses from the card's occupancy
+CLUSTERS = [1, 2, None]
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
 @pytest.mark.parametrize("mode", [TrackMode.NARROWBAND, TrackMode.DATA_ONLY])
-def test_kernel_matches_plain_version(cuda, mode):
+def test_kernel_matches_plain_version(cuda, mode, cluster):
     """Exact blksize and cursors; the same sums in another order agree
-    within 1e-3 of |a|.mean()+1."""
+    within 1e-3 of |a|.mean()+1, whatever the cluster size."""
     cap, setup = _setup(cuda, mode, 30)
     before = fused_track_block.launches
     st_k, rows_k = fused_track_block(setup.cfg, cap, setup.tables,
-                                     setup.consts, setup.state)
+                                     setup.consts, setup.state,
+                                     _cluster=cluster)
     assert fused_track_block.launches == before + 1
     st_r, rows_r = track_block_reference(setup.cfg, cap, setup.tables,
                                          setup.consts, setup.state)
@@ -92,20 +99,23 @@ def test_kernel_matches_plain_version(cuda, mode):
                                    err_msg=n)
 
 
+@pytest.mark.parametrize("cluster", CLUSTERS)
 @pytest.mark.parametrize("mode,blend", [
     (TrackMode.NARROWBAND, "composite"), (TrackMode.WIDEBAND, "composite"),
     (TrackMode.WIDEBAND, "nb"), (TrackMode.WIDEBAND, "split"),
     (TrackMode.WIDEBAND, "dotprod")])
-def test_b1c_kernel_matches_plain_version(cuda, mode, blend):
+def test_b1c_kernel_matches_plain_version(cuda, mode, blend, cluster):
     """B1C at 30 Msps (the wideband setup of tests/test_pallas_fused.py),
     10 epochs: exact blksize and cursors, every output within 1e-3 of
-    |a|.mean()+1 (both sum exactly and round once)."""
+    |a|.mean()+1 (both sum exactly and round once), whatever the cluster
+    size."""
     s = b1c_settings(sampling_freq=30e6, intermediate_freq=7.5e6,
                      track_mode=mode, wb_code_blend=blend)
     cap, setup = _setup(cuda, mode, 10, s)
     before = fused_track_block.launches
     st_k, rows_k = fused_track_block(setup.cfg, cap, setup.tables,
-                                     setup.consts, setup.state)
+                                     setup.consts, setup.state,
+                                     _cluster=cluster)
     assert fused_track_block.launches == before + 1
     st_r, rows_r = track_block_reference(setup.cfg, cap, setup.tables,
                                          setup.consts, setup.state)
@@ -129,6 +139,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         fused_track_block(setup.cfg, cap, setup.tables, setup.consts,
                           cpu_state)
+    # clusters of 32 blocks are beyond the card: the launch is refused
+    # and the wrapper raises
+    with pytest.raises(RuntimeError):
+        fused_track_block(setup.cfg, cap, setup.tables, setup.consts,
+                          setup.state, _cluster=32)
 
 
 def _prefix_args(dev, n=5 * SPLIT + 77):

@@ -1,0 +1,253 @@
+"""The host-side geometry of the CUDA tracking kernel (csrc/track_fused.cu),
+on the CPU.
+
+The kernel splits each channel's epoch over a thread-block cluster, picks
+the cluster size from the card's occupancy, adds each sample signed by its
+chip into float64 sums, and wraps its chip indices with one conditional add
+or subtract.  Each of those rests on a property of the configuration or of
+the data that the plain Python here states and checks at small sizes:
+the slices cover every sample once, the choice takes the largest size that
+holds every channel, the chip tables hold only +-1, the raw chip indices
+stay inside (-L*m, 2*L*m), and summing S slices in float64 rounds to the
+plain version's float32 rows.
+"""
+import numpy as np
+import pytest
+import torch
+
+from bds3_tpu_torch.config import TrackMode, b1c_settings, b2a_settings
+from bds3_tpu_torch.io import SatParams, synthesize_if
+from bds3_tpu_torch.track import driver, scan
+from bds3_tpu_torch.track.fused import (
+    CLUSTER_SIZES,
+    DSTEP_REL,
+    banks,
+    chip_index_bound,
+    choose_cluster,
+    rank_slice,
+    wraps_once,
+)
+from bds3_tpu_torch.track.state import SPLIT, ChannelInit, make_track_config
+
+torch.set_num_threads(2)
+
+SATS = [SatParams(prn=19, doppler_hz=777.0, code_phase_chips=123.0,
+                  amplitude=0.9),
+        SatParams(prn=20, doppler_hz=-1200.0, code_phase_chips=5000.0,
+                  amplitude=0.7)]
+
+
+def _inits(s, sats=SATS):
+    out = []
+    for sat in sats:
+        rate = s.code_freq_basis * (1 + sat.doppler_hz / s.carr_freq_basis)
+        start = ((s.code_length - sat.code_phase_chips % s.code_length)
+                 % s.code_length) / rate
+        out.append(ChannelInit(
+            prn=sat.prn, acquired_freq=s.intermediate_freq + sat.doppler_hz,
+            code_phase=int(round(start * s.sampling_freq)), peak_metric=2.0))
+    return out
+
+
+def _block(s, epochs=20):
+    """One plain block from the synthesized start: (capture, setup,
+    rows)."""
+    sig = synthesize_if(s, SATS, n_ms=(epochs + 5) * s.int_time * 1e3,
+                        noise_std=1.0, seed=6)
+    cap = driver.as_capture(sig, "cpu")
+    setup = driver.setup_tracking(cap, s, _inits(s), epochs, epochs)
+    _, rows = scan.track_block_reference(setup.cfg, cap, setup.tables,
+                                          setup.consts, setup.state)
+    return cap, setup, rows
+
+
+# --- the cluster's slices and its size --------------------------------------
+
+@pytest.mark.parametrize("cluster", CLUSTER_SIZES)
+def test_rank_slices_cover_each_sample_once(cluster):
+    """For every epoch length n in 1..n_max (B2a at 10 Msps), the S ranks'
+    slices are contiguous, in rank order, and cover [0, n) exactly once."""
+    n_max = make_track_config(b2a_settings(sampling_freq=10e6,
+                                           intermediate_freq=2.5e6)).n_max
+    for n in range(1, n_max + 1):
+        edge = 0
+        for rank in range(cluster):
+            lo, hi = rank_slice(n, cluster, rank)
+            assert lo == edge and lo <= hi, (n, rank, lo, hi)
+            edge = hi
+        assert edge == n, (n, cluster)
+
+
+H100_COUNTS = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+
+
+@pytest.mark.parametrize("counts,channels,want", [
+    (H100_COUNTS, 5, 16), (H100_COUNTS, 7, 16), (H100_COUNTS, 8, 8),
+    (H100_COUNTS, 10, 8), (H100_COUNTS, 12, 8), (H100_COUNTS, 15, 8),
+    (H100_COUNTS, 16, 4), (H100_COUNTS, 40, 2), (H100_COUNTS, 100, 1),
+    (H100_COUNTS, 500, 1),
+    # a size the card refuses reports a negative error code
+    ({16: -912, 8: 15, 4: 30, 2: 66, 1: 132}, 5, 8),
+    ({16: 0, 8: 0, 4: 0, 2: 0, 1: 0}, 3, 1),
+])
+def test_choose_cluster_takes_the_largest_size_that_holds_every_channel(
+        counts, channels, want):
+    assert choose_cluster(counts, channels) == want
+
+
+# --- the chip tables hold only +-1 -------------------------------------------
+
+@pytest.mark.parametrize("make", [
+    lambda: b2a_settings(),
+    lambda: b1c_settings(track_mode=TrackMode.NARROWBAND),
+    lambda: b1c_settings(),      # the preset: wideband, BOC(6,1) at m = 12
+], ids=["b2a", "b1c_nb", "b1c_wb_preset"])
+def test_every_chip_table_holds_only_plus_minus_one(make):
+    """The kernel adds +-x for cv * x: every entry of every table the
+    driver builds, the circular padding included, is +1 or -1, for every
+    PRN 1-63."""
+    s = make()
+    cfg = make_track_config(s)
+    inits = [ChannelInit(prn=p, acquired_freq=s.intermediate_freq,
+                         code_phase=0, peak_metric=2.0) for p in range(1, 64)]
+    data, p11, p61 = driver.channel_code_tables(cfg, inits)
+    tables = [data, p11] + ([p61] if cfg.wideband else [])
+    if cfg.wideband:
+        assert p61.shape == (63, cfg.code_length * 12 + 2 * scan.CODE_PAD)
+    for t in tables:
+        assert t.dtype == np.int8
+        assert np.isin(t, (-1, 1)).all()
+
+
+# --- the raw chip index stays inside (-L*m, 2*L*m) ---------------------------
+
+@pytest.mark.parametrize("make", [
+    lambda: b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6),
+    lambda: b1c_settings(sampling_freq=30e6, intermediate_freq=7.5e6),
+], ids=["b2a_10msps", "b1c_wb_30msps"])
+def test_raw_chip_index_of_a_plain_block_stays_in_range(make):
+    """Over a 20-epoch plain block, every raw index ck_int + ceil(frac) - 1
+    the kernel forms (scan.py's formula, from each epoch's starting state)
+    lies in (-L*m, 2*L*m), inside chip_index_bound, and inside the range
+    that the kernel's per-epoch check wraps_once certifies, which holds in
+    every epoch."""
+    cap, setup, rows = _block(make())
+    cfg = setup.cfg
+    out = scan.unpack_rows(cfg, rows)
+    rem, d_step = out["rem_code_phase"], out["d_step"]      # (W, C)
+    blk = out["blksize"].to(torch.int64)
+    tables = {"": (setup.tables.ck_int, setup.tables.ck_frac),
+              "61": (setup.tables.ck61_int, setup.tables.ck61_frac)}
+    bounds = chip_index_bound(cfg)
+    for (m, spacing, sm, sfx), (b_lo, b_hi, lm) in zip(banks(cfg),
+                                                       bounds):
+        assert -lm < b_lo and b_hi < 2 * lm
+        ck_int, ck_frac = tables[sfx]
+        for w in range(rem.shape[0]):
+            for c in range(rem.shape[1]):
+                n = min(int(blk[w, c]), cfg.n_max)
+                j = torch.arange(n)
+                k_idx, r_f = j // SPLIT, (j % SPLIT).to(torch.float32)
+                dsm = d_step[w, c] * m
+                base = [(rem[w, c] + off) * m
+                        for off in (-spacing, 0.0, spacing)]
+                assert wraps_once(base[0], base[2], dsm, n, sm, lm)
+                for b in base:
+                    frac = ((b + ck_frac[k_idx]) + r_f * sm) \
+                        + j.to(torch.float32) * dsm
+                    raw = ck_int[k_idx].to(torch.int64) \
+                        + torch.ceil(frac).to(torch.int64) - 1
+                    assert b_lo <= int(raw.min()) and int(raw.max()) <= b_hi
+                    assert -lm < int(raw.min()) and int(raw.max()) < 2 * lm
+
+
+@pytest.mark.parametrize("make", [
+    lambda: b2a_settings(),                                   # 99.375 Msps
+    lambda: b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6),
+    lambda: b2a_settings(sampling_freq=20e6, intermediate_freq=5e6),
+    lambda: b1c_settings(),                                   # the preset
+    lambda: b1c_settings(track_mode=TrackMode.NARROWBAND),
+    lambda: b1c_settings(sampling_freq=99.375e6 / 3,
+                         intermediate_freq=99.375e6 / 12),
+    lambda: b1c_settings(sampling_freq=6e6, intermediate_freq=1.5e6,
+                         track_mode=TrackMode.NARROWBAND),
+], ids=["b2a_99msps", "b2a_10msps", "b2a_20msps", "b1c_wb_preset",
+        "b1c_nb_99msps", "b1c_wb_33msps", "b1c_nb_6msps"])
+def test_derived_bound_keeps_the_raw_index_in_range(make):
+    """At the loop state's normal range (|rem_code| <= 1 chip, |d_step| <=
+    DSTEP_REL of the nominal step) and a full n_max epoch, the derived
+    bound lies inside (-L*m, 2*L*m), and the kernel's check wraps_once
+    holds at its corners, so the fast wrap is the path these configs
+    take."""
+    cfg = make_track_config(make())
+    for (m, spacing, sm, _), (lo, hi, lm) in zip(banks(cfg),
+                                                 chip_index_bound(cfg)):
+        assert -lm < lo and hi < 2 * lm
+        for rem in (-1.0, 1.0):
+            for sgn in (-1.0, 1.0):
+                dsm = sgn * DSTEP_REL * cfg.step_base * m
+                assert wraps_once((rem - spacing) * m, (rem + spacing) * m,
+                                  dsm, cfg.n_max, sm, lm)
+    # far outside it the kernel takes the modulo instead
+    m, spacing, sm, _ = banks(cfg)[0]
+    lm = cfg.code_length * m
+    assert not wraps_once(-cfg.code_length * m, (spacing - 1.0) * m, 0.0,
+                          cfg.n_max, sm, lm)
+
+
+# --- the cluster's float64 sums round to the plain version's rows ------------
+
+def _cluster_sum(cluster, blk_log):
+    """scan._sum_rounded as the kernel sums: each channel's first n =
+    min(blksize, n_max) products cut into `cluster` contiguous slices
+    (rank_slice), each slice summed in float64, the slices added in rank
+    order from 0.0, the total rounded to float32 once."""
+    def sum_rounded(x):
+        n_ch = blk_log[-1].clamp(max=x.shape[1]).tolist()
+        xs = x.numpy().astype(np.float64)
+        out = np.empty(x.shape[0], np.float32)
+        for c, n in enumerate(n_ch):
+            total = 0.0
+            for rank in range(cluster):
+                lo, hi = rank_slice(n, cluster, rank)
+                total += float(xs[c, lo:hi].sum())
+            out[c] = np.float32(total)
+        return torch.from_numpy(out)
+    return sum_rounded
+
+
+@pytest.fixture(scope="module")
+def b1c_wb_block():
+    """The plain 20-epoch B1C wideband block at 30 Msps and its inputs."""
+    s = b1c_settings(sampling_freq=30e6, intermediate_freq=7.5e6)
+    return _block(s)
+
+
+@pytest.mark.parametrize("cluster", [2, 8, 16])
+def test_cluster_float64_sums_round_to_the_plain_rows(b1c_wb_block, cluster,
+                                                      monkeypatch):
+    """A numpy emulation of the kernel's sums (S slices, each in float64,
+    combined in rank order, rounded once) in place of the plain version's
+    float64 row sum, over the closed-loop 20-epoch B1C wideband block at
+    30 Msps: every row value within one float32 ulp of the plain
+    version's (both round a float64 sum of the same float32 terms once;
+    only a sum that lies within ~1e-12 of a rounding boundary can differ)."""
+    cap, setup, rows = b1c_wb_block
+    blk_log = []
+    plain_blksize = scan._blksize
+
+    def logged_blksize(*a):
+        delta, blk = plain_blksize(*a)
+        blk_log.append(blk)
+        return delta, blk
+
+    monkeypatch.setattr(scan, "_blksize", logged_blksize)
+    monkeypatch.setattr(scan, "_sum_rounded", _cluster_sum(cluster, blk_log))
+    _, got = scan.track_block_reference(setup.cfg, cap, setup.tables,
+                                        setup.consts, setup.state)
+    assert len(blk_log) == setup.cfg.epochs_per_block
+    a = rows.numpy().view(np.int32).astype(np.int64)
+    b = got.numpy().view(np.int32).astype(np.int64)
+    same_sign = np.sign(rows.numpy()) == np.sign(got.numpy())
+    ulps = np.where(same_sign, np.abs(a - b), np.where(a == b, 0, 2))
+    assert int(ulps.max()) <= 1, int(ulps.max())

@@ -5,8 +5,9 @@
 
 The same options as `python -m bds3_tpu`, plus --device.  `--signal b1c`
 runs the B1C preset (wideband, with resampled acquisition above 15 Msps).
-What the port does not cover yet (IQ captures, --transport) exits with
-an error before the file is opened.
+`--transport int4|int2` packs the capture for its host->device upload.
+What the port does not cover yet (IQ captures) exits with an error before
+the file is opened.
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ def main(argv=None):
                    help="UTM E/N datum (ed50 = reference cart2utm parity)")
     p.add_argument("--transport", choices=("none", "int4", "int2"),
                    default="none",
-                   help="host->device capture packing (not ported)")
+                   help="host->device capture packing")
     p.add_argument("--ldpc", action="store_true",
                    help="soft B-CNAV2 LDPC(96,48) decode of frames that "
                         "fail the hard systematic CRC")
@@ -65,8 +66,6 @@ def main(argv=None):
     if args.resume:
         _report(resume_from_checkpoint(args.resume))
         return 0
-    if args.transport != "none":
-        p.error("--transport is not ported yet")
 
     overrides = {"file_name": args.file,
                  "file_type": FileType(args.file_type),
@@ -106,7 +105,7 @@ def main(argv=None):
               f"spectrum peak bin={st['spectrum_peak_bin']}")
 
     res = run_receiver(f, s, checkpoint_path=args.checkpoint,
-                       device=args.device)
+                       device=args.device, transport=args.transport)
     _report(res)
     return 0
 

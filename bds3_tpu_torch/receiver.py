@@ -2,9 +2,11 @@
 PVT, on a PyTorch device.
 
 Port of `bds3_tpu/receiver.py`, for B2a and B1C in every track mode on
-real int8 captures, with B1C's band-pass resampled acquisition.  The
-capture goes to `device` once, as int8, before acquisition; acquisition
-and tracking both read it there.
+real int8 captures, with B1C's band-pass resampled acquisition.
+Acquisition reads its window from the source as given.  A capture that
+fits on the device goes there once (`device_resident`), optionally packed
+(`transport`); a larger one, or a `StreamingCapture` asked to stream, is
+tracked block by block from the host (track/driver.py).
 C/N0 and lock health, navigation decoding and PVT run on the host, in the
 port's own copies of the reference's host modules.
 """
@@ -21,15 +23,22 @@ from bds3_tpu_torch.acquire.pcps import AcqResults, acquire, make_acq_config
 from bds3_tpu_torch.acquire.resample import plan_resample
 from bds3_tpu_torch.config import FileType, Settings
 from bds3_tpu_torch.io.ifdata import IFDataFile
+from bds3_tpu_torch.io.transport import PACKINGS, upload_capture
 from bds3_tpu_torch.observe.cn0 import channel_health
 from bds3_tpu_torch.pvt.solver import NavSolutions, post_navigation
 from bds3_tpu_torch.track.driver import (
     TrackResults,
     as_capture,
+    check_host_source,
     require_ported,
     track,
 )
 from bds3_tpu_torch.track.state import ChannelInit, assign_channels
+from bds3_tpu_torch.utils.device import resolve_device
+
+# device_resident="auto" keeps at least this share of the card's free
+# memory for acquisition and tracking after the capture is uploaded
+RESIDENT_FREE_SHARE = 0.5
 
 
 @dataclasses.dataclass
@@ -71,6 +80,17 @@ def acquisition_signal_length(s: Settings) -> int:
         + cfg.samples_per_code
 
 
+def resident_fits(n_bytes: int, device: torch.device) -> bool:
+    """device_resident="auto": whether an n_bytes int8 capture goes to
+    `device` whole.  On a card, when it takes at most 1 - RESIDENT_FREE_SHARE
+    of the free memory; on the CPU never (the host source is sliced block
+    by block, as the reference does off its chip)."""
+    if device.type != "cuda":
+        return False
+    free, _ = torch.cuda.mem_get_info(device)
+    return n_bytes <= (1.0 - RESIDENT_FREE_SHARE) * free
+
+
 def _channel_table(channels) -> str:
     lines = ["Ch | PRN |  Acquired freq [Hz] | Metric",
              "---+-----+---------------------+-------"]
@@ -90,35 +110,58 @@ def run_receiver(
     acq_results: AcqResults | None = None,
     verbose: bool = True,
     device: str | torch.device = "cuda",
+    device_resident: bool | str = "auto",
+    transport: str = "none",
 ) -> ReceiverResults:
     """Full cold-start pipeline on a real int8 IF capture, on `device`.
 
-    signal: numpy array, tensor or IFDataFile.  Pass `acq_results` to
-    reuse a previous acquisition (the reference's
+    signal: numpy array or memmap, StreamingCapture, tensor or IFDataFile.
+    Pass `acq_results` to reuse a previous acquisition (the reference's
     settings.skipAcquisition workflow, postProcessing.m:81-85).
+    device_resident (bds3_tpu/receiver.py:96-148): True uploads a host
+    capture whole before tracking, False tracks it block by block from the
+    host; "auto" uploads it when it fits (resident_fits).  A tensor is
+    tracked where it is.  transport: "none", "int4" or "int2", the packing
+    of the upload, whole or per block (io.transport).
     Tracking runs the path `track` chooses ("auto").  Configurations the
     port does not cover yet raise NotImplementedError before any work is
     done (check_ported).
     """
     check_ported(settings)
+    if transport not in PACKINGS:
+        raise ValueError(f"unknown transport {transport!r}: expected one "
+                         f"of {PACKINGS}")
     if isinstance(signal, IFDataFile):
         if signal.file_type == FileType.IQ8:
             raise NotImplementedError("complex IQ captures are not ported yet")
         signal = signal.data
+    dev = resolve_device(device)
+    if isinstance(signal, torch.Tensor):
+        signal = as_capture(signal, dev)
+    else:
+        check_host_source(signal)
+        if device_resident == "auto":
+            device_resident = resident_fits(len(signal), dev)
 
     timings = {}
-    t0 = time.time()
-    capture = as_capture(signal, device)
-    dev = capture.device
-    timings["upload_s"] = time.time() - t0
-
     t0 = time.time()
     if acq_results is not None:
         acq = acq_results
     else:
-        acq = acquire(capture[: acquisition_signal_length(settings)],
+        # the window is read from the source as given (receiver.py:108-113)
+        acq = acquire(signal[: acquisition_signal_length(settings)],
                       settings, prns, device=dev)
     timings["acquire_s"] = time.time() - t0
+
+    if device_resident is True and not isinstance(signal, torch.Tensor):
+        t0 = time.time()
+        signal = upload_capture(signal, transport, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        timings["upload_s"] = time.time() - t0
+        if verbose:
+            print(f"[upload] capture -> {dev} in {timings['upload_s']:.2f}s "
+                  f"(transport={transport})")
     if verbose:
         det = ", ".join(
             f"{p}({m:.1f})" for p, m in
@@ -135,8 +178,11 @@ def run_receiver(
     if n_epochs is None:
         n_epochs = settings.int_epochs
     t0 = time.time()
-    trk = track(capture, settings, channels, n_epochs=n_epochs,
-                epochs_per_block=min(epochs_per_block, n_epochs), device=dev)
+    # a host source not uploaded above streams per block, with the
+    # packing applied to each block
+    trk = track(signal, settings, channels, n_epochs=n_epochs,
+                epochs_per_block=min(epochs_per_block, n_epochs), device=dev,
+                transport=transport)
     timings["track_s"] = time.time() - t0
     ms_tracked = trk.n_epochs * settings.int_time * 1e3
     timings["track_realtime_factor"] = ms_tracked / 1e3 / timings["track_s"]

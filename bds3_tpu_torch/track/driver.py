@@ -1,25 +1,39 @@
 """Tracking driver: runs the chosen tracking path block by block over a
-capture that lives on the device, and assembles the per-epoch results.
+capture, and assembles the per-epoch results.
 
-Port of `bds3_tpu/track/driver.py`.  The capture goes to the device once;
-each block of W epochs is one call of the path's block function, which
-reads every channel's samples at its own absolute int64 cursor, so no
-block is sliced, padded or shifted (the reference's int32 block offsets
-and its 2^31-sample limit are TPU artifacts).  The block schedule is the
-reference's, verbatim, so the epoch count, `absolute_sample` and the
-derived frequencies match it.
-The outputs are downloaded once, at the end.
+Port of `bds3_tpu/track/driver.py`, with its two paths:
+
+* resident: a capture that is already a tensor stays where it is; each
+  block of W epochs is one call of the path's block function, which reads
+  every channel's samples at its own absolute int64 cursor, so no block is
+  sliced, padded or shifted (the reference's int32 block offsets and its
+  2^31-sample limit are TPU artifacts);
+* per block (`driver.py:320-366`): a host source (numpy, a memmap, an
+  `io.stream.StreamingCapture`) is read one block at a time, packed if
+  `transport` asks for it, uploaded and unpacked on the device, and the
+  same block function runs on that block with the cursors relative to its
+  start.  Only about two blocks are ever on the device or in host memory,
+  so captures larger than either stream through.
+
+The block schedule is the reference's, verbatim, so the epoch count,
+`absolute_sample` and the derived frequencies match it, and the two paths
+read the same samples.  The outputs are downloaded once, at the end, or
+left on the device (`download=False`, `LazyOutputs`).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from bds3_tpu_torch.config import Settings, Signal
 from bds3_tpu_torch.convert import consts_to_torch, state_to_torch, tables_to_torch
+from bds3_tpu_torch.io.stream import StreamingCapture
+from bds3_tpu_torch.io.transport import PACKINGS, upload
 from bds3_tpu_torch.signals.b1c import b1c_data_boc11, b1c_pilot_boc11, b1c_pilot_boc61
 from bds3_tpu_torch.signals.b2a import b2a_data_code, b2a_pilot_code
 from bds3_tpu_torch.track import fused, prefix
@@ -48,18 +62,66 @@ from bds3_tpu_torch.track.state import (
 from bds3_tpu_torch.utils.device import resolve_device
 
 
+class LazyOutputs:
+    """Mapping view over the packed rows (E, C, slots) left on the device
+    (`track(download=False)`, `bds3_tpu/track/driver.py:70-139`): each name
+    is a (C, E) view of the rows, made when first read.  `realize` downloads
+    the rows once and returns plain numpy (C, E) arrays."""
+
+    def __init__(self, rows: torch.Tensor, names, n_epochs: int):
+        self._rows = rows
+        self._idx = {k: i for i, k in enumerate(names)}
+        self._n = n_epochs
+        self._cache = {}
+
+    def __getitem__(self, k):
+        if k not in self._cache:
+            self._cache[k] = self._rows[: self._n, :, self._idx[k]].T
+        return self._cache[k]
+
+    def __contains__(self, k):
+        return k in self._idx
+
+    def __iter__(self):
+        return iter(self._idx)
+
+    def __len__(self):
+        return len(self._idx)
+
+    def keys(self):
+        return self._idx.keys()
+
+    def items(self):
+        return ((k, self[k]) for k in self._idx)
+
+    def block_until_ready(self):
+        """Wait for the device's work on the rows without downloading:
+        the sync point of throughput timing."""
+        if self._rows.device.type == "cuda":
+            torch.cuda.synchronize(self._rows.device)
+        return self
+
+    def realize(self) -> dict:
+        """Download the rows once; name -> (C, E) numpy arrays."""
+        rows = self._rows[: self._n].cpu().numpy()
+        return {k: np.ascontiguousarray(rows[:, :, i].T)
+                for k, i in self._idx.items()}
+
+
 @dataclasses.dataclass
 class TrackResults:
     """Per-channel, per-epoch tracking archives (the reference's
-    trackResults struct, tracking.m:45-96), as numpy on the host."""
+    trackResults struct, tracking.m:45-96), as numpy on the host; with
+    `download=False`, `outputs` is a LazyOutputs and the three derived
+    fields are None."""
 
     prns: np.ndarray               # (C,)
     acquired_freq: np.ndarray      # (C,) f64
     n_epochs: int
     outputs: dict                  # name -> (C, E) f32 arrays
-    absolute_sample: np.ndarray    # (C, E) int64: sample index of epoch END
-    carr_freq: np.ndarray          # (C, E) f64 absolute NCO frequency
-    code_freq: np.ndarray          # (C, E) f64 absolute code frequency
+    absolute_sample: np.ndarray | None  # (C, E) int64: sample of epoch END
+    carr_freq: np.ndarray | None   # (C, E) f64 absolute NCO frequency
+    code_freq: np.ndarray | None   # (C, E) f64 absolute code frequency
     int_time: float
     settings: Settings = None
     correlator: str = ""           # which tracking path actually ran
@@ -90,18 +152,32 @@ def channel_code_tables(cfg: TrackConfig, inits: list[ChannelInit]):
     return data, p11, p61
 
 
+class BlockSchedule(NamedTuple):
+    """The reference's block schedule: block b reads the capture's samples
+    [starts[b], starts[b] + block_len); consecutive starts are `shift`
+    apart."""
+
+    starts: list
+    block_len: int
+    shift: int
+
+
 def block_schedule(cfg: TrackConfig, consts: ChannelConsts,
-                   cursors0: np.ndarray, total: int, n_epochs: int) -> int:
-    """Number of W-epoch blocks the capture holds: the reference's
-    schedule (bds3_tpu/track/driver.py:256-296), host arithmetic only."""
+                   cursors0: np.ndarray, total: int,
+                   n_epochs: int) -> BlockSchedule:
+    """The W-epoch blocks the capture holds: the reference's schedule
+    (bds3_tpu/track/driver.py:256-296), host arithmetic only."""
     W = cfg.epochs_per_block
     per_epoch_max = cfg.q0_int + 3
     s0 = int(cursors0.min())
+    # every sample a block's epochs can read, with the reference's margins
+    block_len = int(cursors0.max() - s0) + W * per_epoch_max + cfg.n_max \
+        + 2 * cfg.q0_int + 4 * per_epoch_max + W + 64
     exp_adv = cfg.code_length / (cfg.step_base
                                  + consts.init_dstep.astype(np.float64))
     shift = max(int(np.floor(W * (exp_adv.min() - 0.1))), 0)
     spread0 = int(cursors0.max() - s0)
-    n_blocks = 0
+    starts = []
     done = 0
     while done < n_epochs:
         # conservative bound on current max cursor without a device sync
@@ -115,12 +191,12 @@ def block_schedule(cfg: TrackConfig, consts: ChannelConsts,
             )
         if s0 + worst + W * per_epoch_max + cfg.n_max > total:
             break  # out of data: return partial results (tracking.m:250-254)
-        n_blocks += 1
+        starts.append(s0)
         done += W
         s0 += shift
-    if not n_blocks:
+    if not starts:
         raise ValueError("not enough signal for a single tracking block")
-    return n_blocks
+    return BlockSchedule(starts, block_len, shift)
 
 
 @dataclasses.dataclass
@@ -132,8 +208,12 @@ class TrackSetup:
     cursors0: np.ndarray     # (C,) int64 first code start of each channel
     tables: TrackTables
     consts: ChannelConsts    # of tensors
-    state: TrackState
-    n_blocks: int
+    state: TrackState        # cursors absolute
+    schedule: BlockSchedule
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.schedule.starts)
 
 
 # correlator -> block function (the reference's names, driver.py:183-185)
@@ -184,20 +264,27 @@ def require_ported(settings: Settings,
     return cfg
 
 
-def as_capture(signal, device: str | torch.device) -> torch.Tensor:
-    """A real int8 capture as a 1-D int8 tensor on `device` (not copied if
-    it is one already)."""
-    if isinstance(signal, torch.Tensor):
-        kind, ndim = signal.dtype, signal.dim()
-        ok = signal.dtype == torch.int8
-    else:
-        signal = np.asarray(signal)
-        kind, ndim = signal.dtype, signal.ndim
-        ok = signal.dtype == np.int8
+def _check_int8(kind, ndim, ok) -> None:
     if not ok or ndim != 1:
         raise NotImplementedError(
             f"{kind} captures with {ndim} dimensions are not ported yet "
             "(real int8 only)")
+
+
+def as_capture(signal, device: str | torch.device) -> torch.Tensor:
+    """A real int8 capture as a 1-D int8 tensor on `device` (not copied if
+    it is one already).  A StreamingCapture is refused: it is read block
+    by block (`track`), or uploaded whole by `io.transport.upload_capture`."""
+    if isinstance(signal, StreamingCapture):
+        raise TypeError(
+            "a StreamingCapture is not uploaded whole here: pass it to "
+            "track() or run_receiver(), which read it block by block, or "
+            "upload it with bds3_tpu_torch.io.transport.upload_capture")
+    if isinstance(signal, torch.Tensor):
+        _check_int8(signal.dtype, signal.dim(), signal.dtype == torch.int8)
+    else:
+        signal = np.asarray(signal)
+        _check_int8(signal.dtype, signal.ndim, signal.dtype == np.int8)
     dev = resolve_device(device)
     if isinstance(signal, np.ndarray):
         # a writeable, contiguous host copy only where the source is
@@ -206,13 +293,23 @@ def as_capture(signal, device: str | torch.device) -> torch.Tensor:
     return signal.to(dev)
 
 
-def setup_tracking(capture: torch.Tensor, settings: Settings,
-                   inits: list[ChannelInit], n_epochs: int,
-                   epochs_per_block: int) -> TrackSetup:
-    """Host half of `track`: config, tables, initial state and schedule,
-    with the tensors on the capture's device."""
+def check_host_source(signal) -> None:
+    """Raise unless `signal` is a real int8 host source the per-block path
+    reads: a 1-D numpy array or memmap, or a StreamingCapture."""
+    dtype = np.dtype(getattr(signal, "dtype", np.float32))
+    ndim = len(getattr(signal, "shape", (0, 0)))
+    _check_int8(dtype, ndim, dtype == np.int8)
+
+
+def setup_tracking(capture, settings: Settings, inits: list[ChannelInit],
+                   n_epochs: int, epochs_per_block: int,
+                   device: str | torch.device | None = None) -> TrackSetup:
+    """Host half of `track`: config, tables, initial state and schedule.
+    capture: the capture tensor, whose device the tensors go to, or a host
+    source (anything with a length) with the `device` to use."""
     cfg = require_ported(settings, epochs_per_block)
-    dev = capture.device
+    dev = capture.device if isinstance(capture, torch.Tensor) \
+        else resolve_device(device)
     consts = channel_consts(cfg, inits, settings)
     data_t, p11_t, p61_t = channel_code_tables(cfg, inits)
     ck_int, ck_frac = code_coarse_tables(cfg, cfg.m_data)
@@ -226,21 +323,78 @@ def setup_tracking(capture: torch.Tensor, settings: Settings,
                                p61_t, *ck61),
         consts=consts_to_torch(consts, dev),
         state=state_to_torch(state, cursors0, dev),
-        n_blocks=block_schedule(cfg, consts, cursors0, capture.shape[0],
+        schedule=block_schedule(cfg, consts, cursors0, len(capture),
                                 n_epochs),
     )
 
 
 def run_blocks(setup: TrackSetup, capture: torch.Tensor,
                block_fn) -> torch.Tensor:
-    """All blocks, one `block_fn` call each; (n_blocks*W, C, slots) rows
-    on the device, not synchronized."""
+    """All blocks over a resident capture, one `block_fn` call each;
+    (n_blocks*W, C, slots) rows on the device, not synchronized."""
     state = setup.state
     rows = []
     for _ in range(setup.n_blocks):
         state, r = block_fn(setup.cfg, capture, setup.tables, setup.consts,
                             state)
         rows.append(r)
+    return torch.cat(rows)
+
+
+def _upload_block(host: np.ndarray, transport: str, dev: torch.device,
+                  stream) -> torch.Tensor:
+    """One host block to the device; on a card through the side `stream`,
+    so that the copy can overlap the kernel still running on the current
+    stream, which then waits for it."""
+    if stream is None:
+        return upload(host, transport, dev)
+    with torch.cuda.stream(stream):
+        block = upload(host, transport, dev)
+    current = torch.cuda.current_stream(dev)
+    current.wait_stream(stream)
+    block.record_stream(current)
+    return block
+
+
+def stream_blocks(setup: TrackSetup, signal, block_fn, transport: str = "none",
+                  sync_each_block: bool = False,
+                  deadline_s: float | None = None,
+                  t0: float | None = None) -> torch.Tensor:
+    """All blocks over a host source, read, packed, uploaded and tracked
+    one at a time (bds3_tpu/track/driver.py:320-366): block b is
+    signal[starts[b] : starts[b] + block_len], zero-padded past the end,
+    and the cursors are relative to its start.  sync_each_block waits for
+    the previous block's state before the next block is read (a one-block
+    lookahead: host staging stays bounded to ~2 blocks).  deadline_s stops
+    after the first block that ends later than deadline_s seconds after
+    `t0`.  Returns the rows of the blocks run, on the device."""
+    t0 = time.time() if t0 is None else t0
+    cfg, sched = setup.cfg, setup.schedule
+    dev = setup.state.cursor.device
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    # the reference's relative cursors (driver.py:248): cursor - start
+    state = TrackState(setup.state.cursor - sched.starts[0],
+                       setup.state.statef)
+    rows, pending = [], None
+    for s_cur in sched.starts:
+        host = np.ascontiguousarray(signal[s_cur: s_cur + sched.block_len],
+                                    dtype=np.int8)
+        if len(host) < sched.block_len:
+            host = np.concatenate(
+                [host, np.zeros(sched.block_len - len(host), np.int8)])
+        block = _upload_block(host, transport, dev, side)
+        state, r = block_fn(cfg, block, setup.tables, setup.consts, state)
+        rows.append(r)
+        state = TrackState(state.cursor - sched.shift, state.statef)
+        if sync_each_block and dev.type == "cuda":
+            if pending is not None:
+                pending.synchronize()
+            pending = torch.cuda.Event()
+            pending.record(torch.cuda.current_stream(dev))
+        if deadline_s is not None and time.time() - t0 > deadline_s:
+            break
+    if pending is not None:
+        pending.synchronize()
     return torch.cat(rows)
 
 
@@ -252,11 +406,17 @@ def track(
     epochs_per_block: int = 100,
     device: str | torch.device = "cuda",
     correlator: str = "auto",
+    download: bool = True,
+    sync_each_block: bool = False,
+    deadline_s: float | None = None,
+    transport: str = "none",
 ) -> TrackResults:
     """Track all channels for n_epochs integration periods on `device`.
 
-    signal: the whole real int8 capture, numpy or a tensor (a tensor
-    already on `device` is not copied).  correlator: "auto"
+    signal: the whole real int8 capture.  A tensor is tracked where it is
+    moved to (not copied if it is on `device` already).  A host source (a
+    numpy array, a memmap, an io.stream.StreamingCapture) is read, uploaded
+    and tracked one block at a time (stream_blocks).  correlator: "auto"
     (choose_correlator), or one of the reference's paths: "fused" and
     "gather" (the CUDA tracking kernel and its plain version, the direct
     sum), "bucket" and "bucket_pallas" (the prefix-sum correlator with its
@@ -265,18 +425,45 @@ def track(
     instead.  Configurations the port does not cover raise
     NotImplementedError before any device work: B2a and B1C in every
     track mode, on real int8 input, are covered.
+
+    The reference's streaming options (driver.py:166-203) apply to a host
+    source: sync_each_block and deadline_s as in stream_blocks, and
+    transport "int4" or "int2" packs each block on the host and unpacks it
+    on the device (io.transport).  download=False leaves the outputs on
+    the device as a LazyOutputs, without the derived fields.
     """
+    t0 = time.time()
     cfg = require_ported(settings, epochs_per_block)
     correlator = choose_correlator(cfg, correlator)
-    capture = as_capture(signal, device)
+    if transport not in PACKINGS:
+        raise ValueError(f"unknown transport {transport!r}: expected one "
+                         f"of {PACKINGS}")
     if n_epochs is None:
         n_epochs = settings.int_epochs
-    setup = setup_tracking(capture, settings, inits, n_epochs,
-                           epochs_per_block)
-    rows = run_blocks(setup, capture, BLOCK_FNS[correlator])
-    return assemble_results(setup, rows, settings, n_epochs,
-                            ran_name(correlator,
-                                     capture.device.type == "cuda"))
+    block_fn = BLOCK_FNS[correlator]
+    if isinstance(signal, torch.Tensor):
+        capture = as_capture(signal, device)
+        setup = setup_tracking(capture, settings, inits, n_epochs,
+                               epochs_per_block)
+        rows = run_blocks(setup, capture, block_fn)
+    else:
+        check_host_source(signal)
+        setup = setup_tracking(signal, settings, inits, n_epochs,
+                               epochs_per_block, device)
+        rows = stream_blocks(setup, signal, block_fn, transport,
+                             sync_each_block, deadline_s, t0)
+    ran = ran_name(correlator, rows.device.type == "cuda")
+    if not download:
+        n_eff = min(n_epochs, rows.shape[0])
+        return TrackResults(
+            prns=np.array([c.prn for c in inits]),
+            acquired_freq=np.array([c.acquired_freq for c in inits],
+                                   dtype=np.float64),
+            n_epochs=n_eff,
+            outputs=LazyOutputs(rows, output_names(setup.cfg), n_eff),
+            absolute_sample=None, carr_freq=None, code_freq=None,
+            int_time=settings.int_time, settings=settings, correlator=ran)
+    return assemble_results(setup, rows, settings, n_epochs, ran)
 
 
 def assemble_results(setup: TrackSetup, rows: torch.Tensor,

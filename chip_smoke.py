@@ -70,6 +70,23 @@ port's main path through its public entry points:
              block at their shapes, K1 against its plain version, and for
              narrowband also bucket_pallas against the same path with
              the mix+prefix kernel's plain version (as in 6).
+ 11. stream  the 2.2 s B2a capture of 4 written to a .bin and tracked
+             from a StreamingCapture, 12 channels, 2000 epochs in blocks
+             of 500 with sync_each_block, through K1 block by block:
+             transport "none" must equal the resident run of the same
+             blocks (blksize and absolute_sample exactly, correlators
+             within 1e-3 of mean|a|+1; K1 reads the cursor only as an
+             index, so 0 is expected); "int4" and "int2" must lock 12/12;
+             download=False must realize to the download=True outputs.
+             Real-time factor of each transport beside the resident one.
+ 12. mxu_micro  K3 (csrc/mxu_micro.cu) against mxu_micro_reference on
+             seeded normal inputs, every shape of benchmarks/mxu_micro.py:
+             80-89 in every variant at 8 iterations, within 1e-5 of
+             iters * sum|a||b|; then the port's bench stage
+             (bench.bench_mxu_micro, 2000 iterations, its launches
+             counted); then each shape at 2000 iterations in turns: K3,
+             its plain version and a torch.matmul loop (cuBLAS, TF32
+             off), K3 again held to the plain result.
 
 With `--profile` it runs only the build and then torch.profiler over
 short runs of the tracking cells (see phase_profile), one JSON line each,
@@ -171,95 +188,6 @@ def b1c_wb_scenario():
 
     return make_scenario(b1c_wb_e2e_settings(), RX_TRUTH, n_sats=5,
                          sow_base=3600.0 * 3, seed=5)
-
-
-def synthesize_scenario_on(sc, device, noise_std=2.0, amplitude=1.3, seed=0,
-                           chunk=1 << 24):
-    """synthesize_scenario (bds3_tpu_torch/io/scenario.py) for a B1C
-    scenario, computed in float64 on `device`: the same geometry, codes,
-    overlays and power split, rendered chunk by chunk (the host takes
-    some twenty CPU-minutes for the 26 s, 33.125 Msps capture).  Without
-    noise it equals the host's capture sample for sample; the noise comes
-    from a torch generator seeded with `seed`, so with noise it is another
-    draw of the same distribution.  Returns the int8 capture as a tensor
-    on `device`."""
-    import math
-
-    import torch
-
-    from bds3_tpu_torch.io import scenario as scn
-    from bds3_tpu_torch.signals import (
-        b1c_data_boc11, b1c_pilot_boc11, b1c_pilot_boc61, b1c_secondary_code)
-
-    s = sc.settings
-    fs, L, f_rf = s.sampling_freq, s.code_length, s.carr_freq_basis
-    n_ms = s.ms_to_process
-    n = int(round(n_ms * 1e-3 * fs))
-    grid_dt = 0.01
-    t_grid = np.arange(0.0, n_ms * 1e-3 + 3 * grid_dt, grid_dt)
-
-    def dev64(x):
-        return torch.as_tensor(np.asarray(x, np.float64), device=device)
-
-    t_grid_d = dev64(t_grid)
-    sats = []
-    for eph, (a0, a1) in zip(sc.ephemerides, sc.sat_clock):
-        tau_g = scn._delay_grid(sc, eph, t_grid)
-        overlay = scn._nav_symbol_lookup(sc, eph)
-        sec = b1c_secondary_code(eph.prn).astype(np.float64)
-        # every code period the capture can reach, with a margin; the
-        # overlays become per-period tables on the device
-        t_sv = sc.sow_base + np.array([0.0, n / fs]) \
-            - np.array([tau_g.max(), tau_g.min()])
-        t_sv = t_sv + a0 + a1 * (t_sv - eph.t_oc)
-        p0 = int(np.floor(t_sv[0] * s.code_freq_basis / L)) - 2
-        periods = np.arange(
-            p0, int(np.ceil(t_sv[1] * s.code_freq_basis / L)) + 3)
-        pilot_ovl = -sec[periods % len(sec)]
-        comps = [
-            (b1c_data_boc11(eph.prn), 2, overlay(periods), 0.0,
-             amplitude * math.sqrt(11.0 / 44.0)),
-            (b1c_pilot_boc11(eph.prn), 2, pilot_ovl, math.pi / 2,
-             amplitude * math.sqrt(29.0 / 44.0)),
-            (b1c_pilot_boc61(eph.prn), 12, pilot_ovl, 0.0,
-             amplitude * math.sqrt(4.0 / 44.0)),
-        ]
-        sats.append((eph, a0, a1, dev64(tau_g), p0,
-                     [(dev64(w), m, dev64(o), psi, amp)
-                      for w, m, o, psi, amp in comps]))
-
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    out = torch.empty(n, dtype=torch.int8, device=device)
-    for start in range(0, n, chunk):
-        stop = min(start + chunk, n)
-        t = torch.arange(start, stop, dtype=torch.float64,
-                         device=device) / fs
-        acc = torch.zeros(stop - start, dtype=torch.float64, device=device)
-        for eph, a0, a1, tau_g, p0, comps in sats:
-            # np.interp on the uniform grid t_grid
-            i = torch.floor(t / grid_dt).to(torch.int64) \
-                .clamp(0, len(t_grid) - 2)
-            tau = tau_g[i] + (t - t_grid_d[i]) / grid_dt \
-                * (tau_g[i + 1] - tau_g[i])
-            u = sc.sow_base + t - tau
-            dt_sv = a0 + a1 * (u - eph.t_oc)
-            chips = (u + dt_sv) * s.code_freq_basis
-            period = torch.floor(chips / L).to(torch.int64) - p0
-            theta = 2 * np.pi * (s.intermediate_freq * t
-                                 - f_rf * (tau - dt_sv))
-            for wave, m, ovl, psi, amp in comps:
-                entry = torch.remainder(
-                    torch.floor(chips * m).to(torch.int64), L * m)
-                acc += amp * (wave[entry] * ovl[period]) \
-                    * torch.cos(theta + psi)
-        if noise_std > 0:
-            acc += noise_std * torch.randn(stop - start, generator=gen,
-                                           dtype=torch.float64,
-                                           device=device)
-        out[start:stop] = torch.clamp(torch.round(acc), -128, 127) \
-            .to(torch.int8)
-    return out
 
 
 def sat_params(sats, amplitude=0.65):
@@ -996,19 +924,23 @@ def phase_acquire_b1c_preset(caps: Captures) -> dict:
 
 
 def _launch_counts():
+    from bds3_tpu_torch.benchmarks.mxu_micro import mxu_micro
     from bds3_tpu_torch.track import prefix
     from bds3_tpu_torch.track.fused import fused_track_block
 
     return {"track_fused": fused_track_block.launches,
-            "mix_prefix": prefix.mix_prefix.launches}
+            "mix_prefix": prefix.mix_prefix.launches,
+            "mxu_micro": mxu_micro.launches}
 
 
 def _reset_launch_counts():
+    from bds3_tpu_torch.benchmarks.mxu_micro import mxu_micro
     from bds3_tpu_torch.track import prefix
     from bds3_tpu_torch.track.fused import fused_track_block
 
     fused_track_block.launches = 0
     prefix.mix_prefix.launches = 0
+    mxu_micro.launches = 0
 
 
 def _timed_track(capture, s, inits, n_ep, correlator="auto"):
@@ -1111,16 +1043,17 @@ def phase_receiver_b1c_wb(caps: Captures) -> dict:
     """run_receiver on the bench.py:383-431 scenario: B1C wideband ("split"
     blend), 33.125 Msps, IF fs/4, 26 s, 5 satellites (seeds 5 and 2), with
     the preset's resampled acquisition; the capture is rendered on the
-    card (synthesize_scenario_on).  Tracking through K1."""
+    card (io.render.render_scenario).  Tracking through K1."""
     import torch
 
+    from bds3_tpu_torch.io.render import render_scenario
     from bds3_tpu_torch.track.driver import setup_tracking
 
     s = b1c_wb_e2e_settings()
     sc = b1c_wb_scenario()
     t0 = time.perf_counter()
-    capture = synthesize_scenario_on(sc, torch.device("cuda"),
-                                     noise_std=2.0, amplitude=1.3, seed=2)
+    capture = render_scenario(sc, torch.device("cuda"), noise_std=2.0,
+                              amplitude=1.3, seed=2)
     torch.cuda.synchronize()
     synth_s = time.perf_counter() - t0
     res, out = drive_receiver(
@@ -1132,6 +1065,225 @@ def phase_receiver_b1c_wb(caps: Captures) -> dict:
     emit({"phase": "kernel_vs_plain_b1c_wb_receiver_shapes", **cmp})
     del capture
     return {**out, "cmp": cmp}
+
+
+STREAM_TRANSPORTS = ("none", "int4", "int2")
+
+
+def phase_stream(caps: Captures) -> dict:
+    """The 2.2 s, 99.375 Msps B2a capture written to a .bin and tracked
+    from a StreamingCapture (12 channels, 2000 epochs, blocks of 500,
+    sync_each_block) in each transport, against the resident run of the
+    same blocks on the card; the launch counts of the "none" run are set
+    to 0 just before it and read just after."""
+    import torch
+
+    from bds3_tpu_torch.io.stream import StreamingCapture
+    from bds3_tpu_torch.io.transport import upload
+    from bds3_tpu_torch.track import fused
+    from bds3_tpu_torch.track.driver import as_capture, setup_tracking, track
+
+    s = full_settings()
+    sig = caps.get("full")
+    path = os.path.join(CAPTURES, "full_v1.bin")
+    if not (os.path.exists(path) and os.path.getsize(path) == sig.size):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        sig.tofile(tmp)
+        os.replace(tmp, path)
+    dev = torch.device("cuda")
+    inits = make_inits(s, FULL_SATS, 12)
+    n_ep, W = 2000, 500
+    seconds_tracked = n_ep * s.int_time
+
+    def run(src, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trk = track(src, s, inits, n_epochs=n_ep, epochs_per_block=W,
+                    device=dev, **kw)
+        torch.cuda.synchronize()
+        return trk, time.perf_counter() - t0
+
+    capture = as_capture(sig, dev)
+    run(capture)                                   # warm
+    resident, resident_s = run(capture)
+    del capture
+    out = {"phase": "stream_b2a_99msps_12ch", "epochs": n_ep,
+           "epochs_per_block": W, "channels": 12,
+           "file_bytes": int(sig.size),
+           "resident_s": resident_s,
+           "resident_realtime_factor": seconds_tracked / resident_s}
+    streamed = {}
+    for transport in STREAM_TRANSPORTS:
+        _reset_launch_counts()
+        trk, wall = run(StreamingCapture(path), sync_each_block=True,
+                        transport=transport)
+        launches = _launch_counts()
+        if trk.n_epochs != n_ep or trk.correlator != fused.KERNEL_NAME \
+                or launches["track_fused"] != n_ep // W:
+            raise AssertionError(
+                f"streamed {transport}: {trk.n_epochs} epochs through "
+                f"{trk.correlator!r}, launches {launches}")
+        locked = lock_count(trk, 500)
+        if locked != 12:
+            raise AssertionError(f"streamed {transport}: {locked}/12 "
+                                 "channels locked")
+        streamed[transport] = trk
+        out[transport] = {"wall_s": wall, "locked": locked,
+                          "launches": launches,
+                          "realtime_factor": seconds_tracked / wall}
+
+    # "none" reads the resident run's samples: the same epochs, exactly
+    got = streamed["none"]
+    if not np.array_equal(got.outputs["blksize"],
+                          resident.outputs["blksize"]) \
+            or not np.array_equal(got.absolute_sample,
+                                  resident.absolute_sample):
+        raise AssertionError("streamed run: blksize or absolute_sample "
+                             "differ from the resident run")
+    checked = [n for n in resident.outputs
+               if n.startswith(("d_", "p11_"))] + ["carr_err", "code_err"]
+    abs_err = max(float(np.abs(got.outputs[n] - resident.outputs[n]).max())
+                  for n in checked)
+    scaled = max(float(np.abs(got.outputs[n] - resident.outputs[n]).max())
+                 / (float(np.abs(resident.outputs[n]).mean()) + 1.0)
+                 for n in checked)
+    if not scaled <= TOL:
+        raise AssertionError(f"streamed vs resident: {scaled} scaled "
+                             f"(limit {TOL})")
+    out["none"].update(max_abs_err=abs_err, max_scaled_err=scaled)
+
+    # where a streamed block's time goes: the reads alone (the driver's
+    # schedule through a StreamingCapture), and the pageable uploads alone
+    sched = setup_tracking(sig, s, inits, n_ep, W, dev).schedule
+    cap = StreamingCapture(path)
+    t0 = time.perf_counter()
+    blocks = [cap[a: a + sched.block_len] for a in sched.starts]
+    out["read_s"] = time.perf_counter() - t0
+    for transport in STREAM_TRANSPORTS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in blocks:
+            upload(b, transport, dev)
+        torch.cuda.synchronize()
+        out[transport]["upload_s"] = time.perf_counter() - t0
+    out["block_bytes"] = sched.block_len
+    del blocks
+
+    lazy, lazy_s = run(StreamingCapture(path), sync_each_block=True,
+                       download=False)
+    real = lazy.outputs.realize()
+    if lazy.absolute_sample is not None \
+            or sorted(real) != sorted(got.outputs) \
+            or not all(np.array_equal(real[n], got.outputs[n])
+                       for n in real):
+        raise AssertionError("download=False: realize() differs from the "
+                             "download=True outputs")
+    out["lazy"] = {"wall_s": lazy_s,
+                   "realtime_factor": seconds_tracked / lazy_s}
+    emit(out)
+    return out
+
+
+def mxu_library_loop(a, b, variant: str, iters: int):
+    """The yardstick of K3: the same iters products through torch.matmul
+    (cuBLAS; bf16 operands on the tensor cores, float32 with TF32 off),
+    summed in float32.  Timed here, used nowhere in the port."""
+    import torch
+
+    from bds3_tpu_torch.benchmarks.mxu_micro import _offset
+
+    bb = b if variant == "fp32" else b.to(torch.bfloat16)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for i in range(iters):
+        ai = a + _offset(i)
+        if variant == "fp32":
+            acc += torch.matmul(ai, bb)
+            continue
+        hi = ai.to(torch.bfloat16)
+        acc += torch.matmul(hi, bb)
+        if variant == "split":
+            acc += torch.matmul((ai - hi.to(torch.float32))
+                                .to(torch.bfloat16), bb)
+    return acc.sum()
+
+
+def phase_mxu_micro() -> dict:
+    """K3 against its plain version on seeded normal inputs: every shape
+    of benchmarks/mxu_micro.py:80-89 in every variant at 8 iterations;
+    then the bench's mxu_micro stage at 2000 iterations with the launch
+    counts set to 0 just before it and read just after; then each shape
+    of the bench at 2000 iterations: K3, the plain version and the
+    torch.matmul loop in turns (K3 held to the plain result)."""
+    import torch
+
+    from bds3_tpu_torch import bench
+    from bds3_tpu_torch.benchmarks import mxu_micro as k3
+
+    dev = torch.device("cuda")
+    dtypes = {"fp32": (torch.float32, False), "bf16": (torch.bfloat16, False),
+              "split": (torch.float32, True)}
+    rng = np.random.default_rng(17)
+    inputs = {}
+    for shape in dict.fromkeys(sum(k3.SHAPES.values(), [])):
+        M, K, N = shape
+        inputs[shape] = tuple(
+            torch.from_numpy(rng.standard_normal(x).astype(np.float32))
+            .to(dev) for x in ((M, K), (K, N)))
+
+    def args(shape, variant):
+        a, b = inputs[shape]
+        dtype, split = dtypes[variant]
+        return a, b.to(dtype), dtype, split
+
+    def check(shape, variant, iters):
+        a, b, dtype, split = args(shape, variant)
+        got = float(k3.mxu_micro(a, b, dtype, split, iters))
+        want = float(k3.mxu_micro_reference(a, b, dtype, split, iters))
+        err = abs(got - want)
+        lim = 1e-5 * k3.abs_scale(a, b, iters)
+        if not err <= lim:
+            raise AssertionError(f"K3 {variant} {shape} x{iters}: |{got} - "
+                                 f"{want}| = {err} > {lim}")
+        return err, err / lim
+
+    out = {"phase": "mxu_micro", "check_iters": 8, "tolerance": "1e-5 of "
+           "iters * sum|a||b|"}
+    errs = [check(shape, v, 8) for shape in inputs for v in k3.VARIANTS]
+    out["checks"] = len(errs)
+    out["max_abs_err"] = max(e for e, _ in errs)
+    out["max_err_of_tolerance"] = max(r for _, r in errs)
+
+    bench.STATE["device"] = dev
+    _reset_launch_counts()
+    bench.bench_mxu_micro()
+    torch.cuda.synchronize()
+    out["bench_launches"] = _launch_counts()["mxu_micro"]
+    if out["bench_launches"] <= 0:
+        raise AssertionError("the bench's mxu_micro stage launched no K3")
+    out["bench"] = bench.DETAIL["configs"]["mxu_micro"]["shapes"]
+
+    rows = []
+    for M, K, N, dtype, split in k3.bench_shapes():
+        variant = k3.variant_of(dtype, split)
+        a, b, dtype, split = args((M, K, N), variant)
+        fns = {"kernel": lambda: k3.mxu_micro(a, b, dtype, split),
+               "plain": lambda: k3.mxu_micro_reference(a, b, dtype, split),
+               "library": lambda: mxu_library_loop(a, b, variant, k3.ITERS)}
+        ms = {name: [] for name in fns}
+        for name in ("kernel", "plain", "library", "library", "plain",
+                     "kernel"):
+            ms[name].append(time_call(fns[name], reps=1))
+        err, share = check((M, K, N), variant, k3.ITERS)
+        row = {"shape": [M, K, N], "variant": variant,
+               **{f"{n}_ms": float(np.mean(v)) for n, v in ms.items()},
+               "bound_ms": k3.bound_ms(M, K, N, variant),
+               "abs_err_2000": err, "err_of_tolerance_2000": share}
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        rows.append(row)
+    out["timed"] = rows
+    emit(out)
+    return out
 
 
 def profile_cell(cell: str, s, sig, n_channels: int, n_ep: int,
@@ -1249,9 +1401,11 @@ def main() -> int:
     try:
         build_s = phase_build()
         pre = phase_prefix()
+        mxu = phase_mxu_micro()
         small = phase_kernel_small()
         full = phase_kernel_full()
         phase_full_rate(caps)
+        stream = phase_stream(caps)
         rx = phase_receiver(caps)
         phase_bucket_compare(caps)
         k1_b1c = phase_kernel_b1c(caps)
@@ -1264,12 +1418,15 @@ def main() -> int:
     if "jax" in sys.modules:
         raise AssertionError("the port imported JAX")
 
+    from bds3_tpu_torch.benchmarks import mxu_micro as k3
     from bds3_tpu_torch.track import fused, prefix
 
     wb = b1c["track_b1c_wb_99msps_10ch"]
     nb = b1c["track_b1c_nb_99msps_10ch"]
     k1 = k1_b1c["wb_composite"]
     k2 = pre["b1c_10ch"]
+    k3_row = next(r for r in mxu["timed"] if r["shape"] == [128, 128, 1024]
+                  and r["variant"] == "bf16")
     kernels = [{
         "name": "track_fused",
         "route": "cuda",
@@ -1282,7 +1439,9 @@ def main() -> int:
             "b1c_nb_track": nb["auto"]["launches"]["track_fused"],
             "b1c_wb_e2e_receiver": rx_wb["kernel_launches"]["track_fused"],
             "b1c_nb_e2e_receiver": rx_b1c["kernel_launches"]["track_fused"],
-            "b2a_e2e_receiver": rx["kernel_launches"]["track_fused"]},
+            "b2a_e2e_receiver": rx["kernel_launches"]["track_fused"],
+            "b2a_streamed_track":
+                stream["none"]["launches"]["track_fused"]},
         "max_abs_err": max(
             [small["max_abs_err"], full["max_abs_err"],
              rx["cmp"]["max_abs_err"], rx_b1c["cmp"]["max_abs_err"],
@@ -1315,6 +1474,20 @@ def main() -> int:
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "mxu_micro",
+        "route": "cuda",
+        "source": k3.SOURCE,
+        "replaces": k3.REPLACES,
+        # its path: the bench's mxu_micro stage (every shape, 2000 iters)
+        "launches": mxu["bench_launches"],
+        "max_abs_err": mxu["max_abs_err"],
+        # (128, 128) @ (128, 1024) bf16, 2000 iterations
+        "ms": k3_row["kernel_ms"],
+        "plain_ms": k3_row["plain_ms"],
+        "bound_ms": k3_row["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": k3_row["library_ms"],
     }]
     emit({"phase": "summary", "build_s": build_s})
     print(json.dumps({"kernels": kernels}))

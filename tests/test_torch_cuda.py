@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-tracking kernel (track_fused.cu, for B2a and B1C narrowband and wideband)
-and the mix+prefix kernel (mix_prefix.cu).  The port's own config and
-synthesis are used throughout, so nothing here needs JAX.
+tracking kernel (track_fused.cu, for B2a and B1C narrowband and wideband),
+the mix+prefix kernel (mix_prefix.cu) and the matrix-throughput kernel
+(mxu_micro.cu); and tracking streamed block by block from a host source
+against the resident run.  The port's own config and synthesis are used
+throughout, so nothing here needs JAX.
 
 Marked `cuda` and skipped without an NVIDIA GPU.  On a machine with one
 (and without JAX, which tests/conftest.py imports) run:
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from bds3_tpu_torch.benchmarks import mxu_micro
 from bds3_tpu_torch.config import TrackMode, b1c_settings, b2a_settings
 from bds3_tpu_torch.io import SatParams, synthesize_if
 from bds3_tpu_torch.track import driver
@@ -227,3 +230,69 @@ def test_bucket_pallas_block_matches_bucket_block(cuda, mode):
             scale = np.abs(want[n]).mean() + 1.0
             np.testing.assert_allclose(k[n] / scale, want[n] / scale,
                                        atol=tol, err_msg=n)
+
+
+@pytest.mark.parametrize("variant", ["fp32", "bf16", "split"])
+@pytest.mark.parametrize("shape", [(8, 128, 512), (128, 128, 1024),
+                                   (256, 256, 256), (20, 32, 72)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mxu_micro_matches_plain_version(cuda, shape, variant):
+    """K3 against mxu_micro_reference on seeded normal inputs, 8
+    iterations: within 1e-5 of iters * sum |a||b| (float64); ragged tiles
+    (20 x 72) included."""
+    M, K, N = shape
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    dtype = torch.bfloat16 if variant == "bf16" else torch.float32
+    a, b = a.to(cuda), b.to(cuda).to(dtype)
+    split = variant == "split"
+    before = mxu_micro.mxu_micro.launches
+    got = mxu_micro.mxu_micro(a, b, dtype, split, iters=8)
+    assert mxu_micro.mxu_micro.launches == before + 1
+    want = mxu_micro.mxu_micro_reference(a, b, dtype, split, 8)
+    torch.cuda.synchronize()
+    scale = mxu_micro.abs_scale(a, b, 8)
+    assert abs(float(got) - float(want)) <= 1e-5 * scale
+
+
+def test_mxu_micro_rejects_what_the_kernel_does_not_take(cuda):
+    a = torch.ones((16, 24), device=cuda)
+    with pytest.raises(ValueError):            # K not a multiple of 16
+        mxu_micro.mxu_micro(a, torch.ones((24, 8), device=cuda))
+    a = torch.ones((16, 32), device=cuda)
+    with pytest.raises(TypeError):             # bf16 wants a bf16 b
+        mxu_micro.mxu_micro(a, torch.ones((32, 8), device=cuda),
+                            torch.bfloat16)
+    with pytest.raises(ValueError):
+        mxu_micro.mxu_micro(a, torch.ones((32, 8)))
+
+
+@pytest.mark.parametrize("transport", ["none", "int4"])
+def test_streamed_track_matches_resident(cuda, tmp_path, transport):
+    """track() from a StreamingCapture, block by block through K1 with
+    sync_each_block, against the resident run of the same capture (clipped
+    to the int4 grid for "int4"): the same samples are read, so every
+    output is equal."""
+    from bds3_tpu_torch.io.stream import StreamingCapture
+
+    s = b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6)
+    sig = synthesize_if(s, SATS, n_ms=200.0, noise_std=1.0, seed=6)
+    if transport == "int4":
+        sig = np.clip(sig, -8, 7).astype(np.int8)
+    path = tmp_path / "cap.bin"
+    sig.tofile(path)
+    _, setup = _setup(cuda, TrackMode.NARROWBAND, 40)
+    inits = setup.inits
+    res = driver.track(torch.from_numpy(sig).to(cuda), s, inits,
+                       n_epochs=150, epochs_per_block=40, device=cuda)
+    before = fused_track_block.launches
+    got = driver.track(StreamingCapture(str(path)), s, inits, n_epochs=150,
+                       epochs_per_block=40, device=cuda,
+                       sync_each_block=True, transport=transport)
+    assert fused_track_block.launches == before + 4
+    assert got.n_epochs == res.n_epochs == 150
+    np.testing.assert_array_equal(got.absolute_sample, res.absolute_sample)
+    for n in res.outputs:
+        np.testing.assert_array_equal(got.outputs[n], res.outputs[n],
+                                      err_msg=n)

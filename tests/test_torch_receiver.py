@@ -236,9 +236,11 @@ class TestCLI:
                              env=env, cwd=REPO)
         assert res.returncode == 0, res.stderr[-2000:]
 
-    # the first case was --resample, ported now; IQ captures are not
+    # the first case was --resample, ported now; IQ captures are not, with
+    # or without the --transport packing (ported: test_torch_stream.py)
     @pytest.mark.parametrize("extra", [["--file-type", "2"],
-                                       ["--transport", "int4"]])
+                                       ["--file-type", "2",
+                                        "--transport", "int4"]])
     def test_unported_options_exit_with_error(self, tmp_path, extra):
         out = subprocess.run(
             [sys.executable, "-m", "bds3_tpu_torch", "--signal", "b2a",
@@ -271,8 +273,9 @@ class TestCLI:
 
     def test_b1c_exits_with_error(self, tmp_path):
         """B1C runs at its preset now; an IQ capture still exits with an
-        error before the file is opened, and so does --transport."""
-        for extra in (["--file-type", "2"], ["--transport", "int2"]):
+        error before the file is opened, with any --transport."""
+        for extra in (["--file-type", "2"],
+                      ["--file-type", "2", "--transport", "int2"]):
             out = subprocess.run(
                 [sys.executable, "-m", "bds3_tpu_torch", "--signal", "b1c",
                  "--file", str(tmp_path / "none.bin"), "--device", "cpu",

@@ -1,8 +1,9 @@
 """The port stands alone: nothing in bds3_tpu_torch/ or chip_smoke.py
 imports the JAX package, JAX or jaxlib; every module imports with
-bds3_tpu blocked; the host modules it copied equal their originals but
-for the import prefix; and its entry points refuse the JAX package's
-Settings, whose enums are of other classes."""
+bds3_tpu blocked; the host modules it copied (and the native IO runtime's
+sources) equal their originals but for the import prefix; and its entry
+points refuse the JAX package's Settings, whose enums are of other
+classes."""
 import ast
 import os
 import pathlib
@@ -34,8 +35,10 @@ COPIED = (
                                   "ldpc")]
     + [f"pvt/{m}.py" for m in ("__init__", "geodesy", "lsq", "pseudorange",
                                "satpos", "solver")]
-    + ["observe/__init__.py", "observe/cn0.py"]
-    + [f"io/{m}.py" for m in ("__init__", "ifdata", "synth", "scenario")]
+    + ["observe/__init__.py", "observe/cn0.py", "observe/secondary.py"]
+    + [f"io/{m}.py" for m in ("__init__", "ifdata", "synth", "scenario",
+                              "stream")]
+    + ["runtime/__init__.py", "runtime/src/ifio.cpp", "runtime/Makefile"]
 )
 
 
@@ -78,7 +81,8 @@ def test_every_module_imports_with_bds3_tpu_blocked():
 def test_host_copy_equals_original(rel):
     original = (REPO / "bds3_tpu" / rel).read_text()
     copy = (PORT / rel).read_text()
-    assert copy == original.replace("bds3_tpu.", "bds3_tpu_torch.")
+    assert copy == original.replace("bds3_tpu.", "bds3_tpu_torch.").replace(
+        "from bds3_tpu import", "from bds3_tpu_torch import")
 
 
 def _init():

@@ -1,9 +1,10 @@
 """Builds the port's CUDA sources into one shared library at first use.
 
-`nvcc` compiles every `csrc/*.cu` for sm_90a (Hopper) into
+`nvcc` compiles every `csrc/*.cu` for sm_90a (Hopper), one process per
+source, all started together, and links the objects into
 `_build/libbds3_tpu_torch_<hash>.so`, keyed by a hash of the sources and
-the flags, and the library is loaded with ctypes: each kernel has a plain
-C entry point that takes pointers, sizes and a stream and returns
+the flags.  The library is loaded with ctypes: each kernel has a plain C
+entry point that takes pointers, sizes and a stream and returns
 `cudaGetLastError()`.  No PyTorch header is compiled, which keeps a build
 to seconds.  The compiler's output (ptxas register and shared-memory
 counts) is kept beside the library as `<name>.log`.
@@ -53,22 +54,49 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbds3_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def build(so: Path) -> str:
+    """Compiles every source into an object in parallel, links them into
+    `so` and returns the compilers' output; raises on a failure."""
+    nvcc = nvcc_path()
+    objs = so.with_name(f"{so.stem}.{os.getpid()}.objs")
+    objs.mkdir(parents=True, exist_ok=True)
+    cflags = [f for f in NVCC_FLAGS if f != "-shared"]
+    try:
+        jobs, objects = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            objects.append(str(objs / f"{src.stem}.o"))
+            cmd = [nvcc, *cflags, "-c", "-o", objects[-1], str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE,
+                                               text=True)))
+        outs = [proc.communicate() for _, proc in jobs]   # wait for all
+        log = []
+        for (cmd, proc), (out, err) in zip(jobs, outs):
+            log.append(f"{' '.join(cmd)}\n{out}{err}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err}")
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objects]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        log.append(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
+    return "".join(log)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded library, compiled first if this source hash is new."""
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
+        log = build(so)
         so.with_suffix(".log").write_text(
-            f"{' '.join(cmd)}\nbuilt in {time.perf_counter() - t0:.3f} s\n"
-            f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
+            f"built in {time.perf_counter() - t0:.3f} s\n{log}")
     return ctypes.CDLL(str(so))

@@ -24,6 +24,7 @@ reference's interface; the shapes are the reference's (SHAPES).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import sys
 
@@ -46,9 +47,18 @@ SHAPES = {
              (256, 256, 256)],
     "split": [(32, 128, 512), (128, 128, 1024)],
 }
-# the kernel's tiles (mxu_micro.cu): (rows, columns) of one block's output
-TILES = {"fp32": (64, 64), "bf16": (16, 64), "split": (16, 64)}
 MAX_K = 256   # a and b's tile rows in one block's shared memory
+SMS = 132     # the H100 SXM's streaming multiprocessors
+# the planner's aims: blocks per launch (two a SM for wgmma, whose 64 x 256
+# tile takes half an SM's shared memory at K = 128; four for FFMA), and
+# the fewest iterations a chunk should have where iters allows
+TARGET_BLOCKS = {"fp32": 4 * SMS, "bf16": 2 * SMS, "split": 2 * SMS}
+MIN_CHUNK = 4
+# the FFMA kernel's block tiles (8 TY x 8 TX outputs, TY TX threads), in
+# the order the planner prefers them at equal waste
+FP32_TILES = ((64, 128), (128, 64), (32, 256), (16, 512), (8, 1024),
+              (64, 64), (32, 128), (16, 256), (8, 512))
+WGMMA_TILE = (64, 256)   # one warpgroup, m64n256k16
 # NVIDIA's H100 SXM dense peaks, operations per second (data sheet, 700 W):
 # float32 outside the tensor cores, bf16 on them
 PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "split": 989e12}
@@ -80,10 +90,52 @@ def bound_ms(M: int, K: int, N: int, variant: str,
     return operations(M, K, N, variant, iters) / PEAK_OPS[variant] * 1e3
 
 
-def grid(M: int, N: int, variant: str) -> int:
-    """Thread blocks of one launch, one float64 partial each."""
-    tm, tn = TILES[variant]
-    return -(-M // tm) * -(-N // tn)
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch: output tiles of tile_m x tile_n, times `chunks` slices
+    of the iterations (chunk c covers [c iters // chunks, (c + 1) iters //
+    chunks)); one block and one float64 partial for each pair."""
+    tile_m: int
+    tile_n: int
+    tiles_m: int
+    tiles_n: int
+    chunks: int
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.chunks
+
+    def chunk_bounds(self, iters: int) -> list[tuple[int, int]]:
+        """[start, stop) of every chunk, as the kernel computes them."""
+        return [(c * iters // self.chunks, (c + 1) * iters // self.chunks)
+                for c in range(self.chunks)]
+
+
+def _padded(M: int, N: int, tile: tuple[int, int]) -> int:
+    return -(-M // tile[0]) * tile[0] * -(-N // tile[1]) * tile[1]
+
+
+def plan(M: int, N: int, variant: str, iters: int = ITERS) -> Plan:
+    """The tile and the chunks of one launch.  bf16 and split take the
+    wgmma tile; fp32 the FFMA tile that pads the output least (FP32_TILES'
+    order breaks ties).  Chunks: enough blocks to reach TARGET_BLOCKS
+    unless a chunk would fall below MIN_CHUNK iterations, but never fewer
+    blocks than SMS while iters allows, and at most one chunk an
+    iteration (one chunk at iters = 0)."""
+    if variant == "fp32":
+        tile = min(FP32_TILES, key=lambda t: _padded(M, N, t))
+    else:
+        tile = WGMMA_TILE
+    tiles_m, tiles_n = -(-M // tile[0]), -(-N // tile[1])
+    tiles = tiles_m * tiles_n
+    want = min(-(-TARGET_BLOCKS[variant] // tiles),
+               iters // MIN_CHUNK)
+    chunks = max(1, min(iters, max(-(-SMS // tiles), want)))
+    return Plan(*tile, tiles_m, tiles_n, chunks)
 
 
 def abs_scale(a: torch.Tensor, b: torch.Tensor, iters: int) -> float:
@@ -132,7 +184,7 @@ def _entry():
 
     fn = library().bds3_mxu_micro
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p] * 3
     return fn
 
@@ -146,7 +198,7 @@ def mxu_micro(a: torch.Tensor, b: torch.Tensor,
     "bf16" (a float32 b is rounded to bfloat16 for "split", as the
     reference rounds it).  K must be a multiple of 16, at most 256.  One
     launch of the kernel and one of the partials' sum, on the current
-    stream, not synchronized."""
+    stream, not synchronized; the grid is `plan`'s."""
     variant = variant_of(dtype, split)
     dev = a.device
     if dev.type == "cpu":
@@ -163,12 +215,13 @@ def mxu_micro(a: torch.Tensor, b: torch.Tensor,
     b_type = torch.float32 if variant == "fp32" else torch.bfloat16
     check_tensor("a", a, torch.float32, (M, K), dev)
     check_tensor("b", b, b_type, (K, N), dev)
-    partials = torch.empty(grid(M, N, variant), dtype=torch.float64,
-                           device=dev)
+    p = plan(M, N, variant, iters)
+    partials = torch.empty(p.blocks, dtype=torch.float64, device=dev)
     out = torch.empty((1, 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _entry()(a.data_ptr(), b.data_ptr(), M, K, N,
-                       VARIANTS.index(variant), iters, partials.data_ptr(),
+                       VARIANTS.index(variant), iters, p.tile_m, p.tile_n,
+                       p.chunks, partials.data_ptr(),
                        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch ({variant}, {M}x{K}x{N}) "

@@ -232,28 +232,54 @@ def test_bucket_pallas_block_matches_bucket_block(cuda, mode):
                                        atol=tol, err_msg=n)
 
 
-@pytest.mark.parametrize("variant", ["fp32", "bf16", "split"])
-@pytest.mark.parametrize("shape", [(8, 128, 512), (128, 128, 1024),
-                                   (256, 256, 256), (20, 32, 72)],
-                         ids=lambda s: "x".join(map(str, s)))
-def test_mxu_micro_matches_plain_version(cuda, shape, variant):
-    """K3 against mxu_micro_reference on seeded normal inputs, 8
-    iterations: within 1e-5 of iters * sum |a||b| (float64); ragged tiles
-    (20 x 72) included."""
+def _mxu_check(dev, shape, variant, iters, seed=5, offset=0):
+    """K3 against mxu_micro_reference on seeded normal inputs, one launch:
+    within 1e-5 of iters * sum |a||b| (float64).  a and b start `offset`
+    elements into their storage."""
     M, K, N = shape
-    rng = np.random.default_rng(5)
-    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
-    b = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal(offset + M * K)
+                         .astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(offset + K * N)
+                         .astype(np.float32))
     dtype = torch.bfloat16 if variant == "bf16" else torch.float32
-    a, b = a.to(cuda), b.to(cuda).to(dtype)
+    a = a.to(dev)[offset:].view(M, K)
+    b = b.to(dev).to(dtype)[offset:].view(K, N)
     split = variant == "split"
     before = mxu_micro.mxu_micro.launches
-    got = mxu_micro.mxu_micro(a, b, dtype, split, iters=8)
+    got = mxu_micro.mxu_micro(a, b, dtype, split, iters=iters)
     assert mxu_micro.mxu_micro.launches == before + 1
-    want = mxu_micro.mxu_micro_reference(a, b, dtype, split, 8)
+    want = mxu_micro.mxu_micro_reference(a, b, dtype, split, iters)
     torch.cuda.synchronize()
-    scale = mxu_micro.abs_scale(a, b, 8)
-    assert abs(float(got) - float(want)) <= 1e-5 * scale
+    scale = mxu_micro.abs_scale(a, b, iters)
+    assert abs(float(got) - float(want)) <= 1e-5 * scale, (
+        float(got), float(want), scale)
+
+
+@pytest.mark.parametrize("variant", ["fp32", "bf16", "split"])
+@pytest.mark.parametrize("shape", [(8, 128, 512), (128, 128, 1024),
+                                   (256, 256, 256), (20, 32, 72),
+                                   (32, 128, 512), (16, 128, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mxu_micro_matches_plain_version(cuda, shape, variant):
+    """K3 against its plain version at 8 iterations; ragged tiles (20 x 72)
+    and rows that pad the tile (M = 8, 16, 32) included."""
+    _mxu_check(cuda, shape, variant, 8)
+
+
+@pytest.mark.parametrize("variant", ["fp32", "bf16", "split"])
+@pytest.mark.parametrize("iters", [0, 37, 2000])
+def test_mxu_micro_chunks_the_iterations(cuda, iters, variant):
+    """K3 at iteration counts that leave no chunk (0), ragged chunks of one
+    iteration (37) and the bench's 2000, at (32, 128, 512)."""
+    _mxu_check(cuda, (32, 128, 512), variant, iters)
+
+
+@pytest.mark.parametrize("variant", ["fp32", "bf16", "split"])
+def test_mxu_micro_takes_ragged_and_unaligned_operands(cuda, variant):
+    """N a multiple of neither 4 nor 8, and a and b one element past a
+    16-byte boundary: the kernel's element-wise load paths."""
+    _mxu_check(cuda, (20, 32, 70), variant, 8, offset=1)
 
 
 def test_mxu_micro_rejects_what_the_kernel_does_not_take(cuda):

@@ -1,8 +1,8 @@
 """K3, the matrix-throughput microbenchmark: the port's plain version
 (bds3_tpu_torch/benchmarks/mxu_micro.py:mxu_micro_reference) against the
 JAX Pallas kernel (benchmarks/mxu_micro.py:make_bench) in interpret mode,
-for every variant, on seeded normal inputs; and the wrapper's host-side
-geometry.  The CUDA kernel itself is held to the plain version on the card
+for every variant, on seeded normal inputs; the wrapper's host-side
+planner; and chip_smoke's one-call yardstick.  The CUDA kernel itself is held to the plain version on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 import functools
 
@@ -82,15 +82,60 @@ def test_shapes_are_the_reference_mains():
         assert K % 16 == 0 and K <= mxu_micro.MAX_K
 
 
+@pytest.mark.parametrize("iters", [0, 1, 37, 2000])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_grid_covers_the_output(variant):
-    """One partial per block of the kernel's tile: the fewest tiles that
-    cover every (m, n) of each shape."""
-    tm, tn = mxu_micro.TILES[variant]
-    for M, K, N in mxu_micro.SHAPES["fp32"]:
-        n = mxu_micro.grid(M, N, variant)
-        assert n == -(-M // tm) * -(-N // tn)
-        assert n * tm * tn >= M * N
+def test_grid_covers_the_output(variant, iters):
+    """The planner, at every shape of the reference in every variant: its
+    tiles cover every (m, n) once (and none lies wholly outside), its
+    chunks partition [0, iters), one partial per (tile, chunk), and at
+    least one block per SM wherever iters allows it."""
+    for M, K, N in sum(mxu_micro.SHAPES.values(), []):
+        p = mxu_micro.plan(M, N, variant, iters)
+        if variant != "fp32":
+            assert (p.tile_m, p.tile_n) == mxu_micro.WGMMA_TILE
+        else:
+            assert (p.tile_m, p.tile_n) in mxu_micro.FP32_TILES
+            assert p.tile_m <= max(M, 8)   # no wasted rows at M = 8, 16
+        covered = np.zeros((p.tiles_m * p.tile_m, p.tiles_n * p.tile_n),
+                           np.int64)
+        for tm in range(p.tiles_m):
+            for tn in range(p.tiles_n):
+                assert tm * p.tile_m < M and tn * p.tile_n < N
+                covered[tm * p.tile_m:(tm + 1) * p.tile_m,
+                        tn * p.tile_n:(tn + 1) * p.tile_n] += 1
+        assert np.all(covered[:M, :N] == 1)
+        bounds = p.chunk_bounds(iters)
+        assert bounds[0][0] == 0 and bounds[-1][1] == iters
+        assert all(lo <= hi for lo, hi in bounds)
+        assert all(bounds[c][1] == bounds[c + 1][0]
+                   for c in range(len(bounds) - 1))
+        assert p.blocks == p.tiles * p.chunks
+        assert p.chunks >= 1 and p.chunks <= max(iters, 1)
+        if iters >= mxu_micro.SMS:
+            assert p.blocks >= mxu_micro.SMS
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_one_call_yardstick_is_the_function(variant):
+    """chip_smoke's yardstick, one torch.mm over [a_0 | a_1 | ...] and b
+    repeated along K, against mxu_micro_reference at ITERS iterations:
+    within 1e-5 of ITERS * sum |a||b| (bf16 widened exactly to float32 on
+    the CPU)."""
+    import chip_smoke
+
+    _, tdt, split = VARIANTS[variant]
+    a, b = _inputs(16, 32, 24, seed=2)
+    a_t, b_t = torch.from_numpy(a), torch.from_numpy(b).to(tdt)
+    a_cat, b_rep = chip_smoke.mxu_one_call_operands(a_t, b_t, variant, ITERS)
+    parts = 2 if variant == "split" else 1
+    assert a_cat.shape == (16, parts * ITERS * 32)
+    assert b_rep.shape == (parts * ITERS * 32, 24)
+    mode = chip_smoke.mxu_one_call_mode(variant, torch.device("cpu"))
+    assert mode == ("float32" if variant == "fp32" else "widened")
+    got = float(chip_smoke.mxu_one_call(a_cat, b_rep, mode))
+    want = float(mxu_micro.mxu_micro_reference(a_t, b_t, tdt, split, ITERS))
+    scale = mxu_micro.abs_scale(a_t, b_t, ITERS)
+    assert abs(got - want) <= TOL * scale, (got, want, scale)
 
 
 def test_bound_counts_both_products_of_split():

@@ -18,6 +18,16 @@ bucket correlator's boundaries past the epoch end read it.
 `mix_prefix` runs the CUDA kernel on CUDA tensors and raises on anything
 it does not take; on CPU tensors it runs `mix_prefix_reference`, its
 plain PyTorch version.  It never falls back.
+
+The kernel is one launch: each block mixes and scans one 4096-sample
+tile, publishes the tile's total, sums the totals of its channel's
+earlier tiles in float64 in a fixed order, and writes its prefixes once
+(see the header of `csrc/mix_prefix.cu`).  The blocks find each other
+through the scratch that `buffers` makes: a ticket counter, the call's
+generation number and one published total per tile.  It is zero when
+made, every call leaves it ready for the next, and it serves any later
+call on the same stream whose shape it holds.  Two calls that run at once
+must not share one.
 """
 from __future__ import annotations
 
@@ -41,14 +51,40 @@ def n_tiles(n: int) -> int:
     return -(-n // SPLIT)
 
 
+def scratch_words(c: int, n: int) -> int:
+    """64-bit words of the kernel's scratch for C windows of n samples:
+    the ticket counter, the generation, and the I and Q totals of each
+    (channel, tile)."""
+    return 2 + 2 * c * n_tiles(n)
+
+
 def buffers(c: int, n: int, device) -> tuple[tuple[torch.Tensor,
                                                    torch.Tensor], torch.Tensor]:
-    """The kernel's output pair (P_i, P_q), each (C, n + 1), and its
-    scratch, the (C, n_tiles(n), 2) per-tile I/Q totals; all float32.  A
-    caller that runs many windows of one shape allocates them once."""
+    """The kernel's output pair (P_i, P_q), each (C, n + 1) float32, and
+    its scratch, (scratch_words(c, n),) int64 zeros.  A caller that runs
+    many windows allocates them once; the scratch also serves windows of
+    any smaller shape."""
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
-    return (empty(c, n + 1), empty(c, n + 1)), empty(c, n_tiles(n), 2)
+    scratch = torch.zeros(scratch_words(c, n), dtype=torch.int64,
+                          device=device)
+    return (empty(c, n + 1), empty(c, n + 1)), scratch
+
+
+def check_buffers(c: int, n: int,
+                  out: tuple[torch.Tensor, torch.Tensor] | None,
+                  scratch: torch.Tensor | None, device: torch.device) -> None:
+    """Raise unless `out` and `scratch`, where given, are what
+    `buffers(c, n, device)` makes; the scratch may be longer (one made for
+    a larger shape)."""
+    for name, t in zip(("out[0]", "out[1]"), out or ()):
+        check_tensor(name, t, torch.float32, (c, n + 1), device)
+    if scratch is None:
+        return
+    check_tensor("scratch", scratch, torch.int64, (scratch.numel(),), device)
+    if scratch.numel() < scratch_words(c, n):
+        raise ValueError(f"scratch has {scratch.numel()} words, expected at "
+                         f"least {scratch_words(c, n)}")
 
 
 def mix_prefix_reference(capture: torch.Tensor, cursor: torch.Tensor,
@@ -135,18 +171,20 @@ def mix_prefix(capture: torch.Tensor, cursor: torch.Tensor,
 
     capture (N,) int8; cursor, blk (C,) int64; base (C, n_tiles(n))
     float32; slope (C,) float32.  Returns (P_i, P_q), each (C, n + 1)
-    float32, written into `out` when it is given; `scratch` is the
-    kernel's per-tile totals.  Both are as `buffers` makes them, and made
-    anew for the call where not given.  The launch is on the current
-    stream and is not synchronized.
+    float32, written into `out` when it is given; `scratch` is where the
+    kernel's blocks publish their tiles' totals.  Both are as `buffers`
+    makes them (a scratch of a larger shape will do), are checked on any
+    device, and are made anew for the call where not given.  The launch
+    is one kernel on the current stream and is not synchronized.
     """
     dev = capture.device
+    c = cursor.shape[0]
     if dev.type == "cpu":
+        check_buffers(c, n, out, scratch, dev)
         return mix_prefix_reference(capture, cursor, blk, base, slope, n, out)
     if dev.type != "cuda":
         raise ValueError(f"no mix_prefix kernel for device {dev}")
 
-    c = cursor.shape[0]
     if not 0 < n < 2**31 - 1:
         raise ValueError(f"window length {n} out of range")
     check_tensor("capture", capture, torch.int8, (capture.shape[0],), dev)
@@ -158,10 +196,7 @@ def mix_prefix(capture: torch.Tensor, cursor: torch.Tensor,
         made_out, made_scratch = buffers(c, n, dev)
         out = made_out if out is None else out
         scratch = made_scratch if scratch is None else scratch
-    for name, t in zip(("out[0]", "out[1]"), out):
-        check_tensor(name, t, torch.float32, (c, n + 1), dev)
-    # per-tile I/Q totals: pass 1 writes them, pass 2 adds the carries
-    check_tensor("scratch", scratch, torch.float32, (c, n_tiles(n), 2), dev)
+    check_buffers(c, n, out, scratch, dev)
     launch = _entry()
     with torch.cuda.device(dev):
         err = launch(

@@ -33,11 +33,18 @@ port's main path through its public entry points:
              Then the same 2000 epochs through the prefix-sum path
              (track(correlator="bucket_pallas"), the mix+prefix kernel):
              12/12 locked, real-time factor beside the tracking kernel's.
-  5. prefix  mix_prefix (csrc/mix_prefix.cu) against mix_prefix_reference
+  5. prefix  (run last) mix_prefix (csrc/mix_prefix.cu) against
+             mix_prefix_reference
              and a float64 numpy oracle at B1C (10 channels) and B2a
              (12 channels) 99.375 Msps epoch widths and at the B1C
              receiver's (6 Msps, 5 channels), with windows past the
-             capture's end and blk < n: within 5e-4 of max|P_i| + 1.
+             capture's end and blk < n, and at edge windows (n < 4096,
+             n = 1, blk <= 0, cursors below 0 and past the end): within
+             5e-4 of max|P_i| + 1; every call repeated bit for bit; one
+             scratch reused by every shape and cursor, bit for bit.
+             Times with output and scratch made once and made per call,
+             the device's own time (torch.profiler), the plain version's
+             and a scan-only torch.cumsum (less work than K2).
   6. bucket  one 20-epoch bucket_pallas block from the same state, B2a
              (12 channels) and B1C narrowband (10 channels) at 99.375 Msps:
              blksize and cursors equal, correlators within 1e-3 of
@@ -781,66 +788,212 @@ def plain_pallas_block():
         prefix_fn=functools.partial(pallas_prefix, mix=mix_prefix_reference))
 
 
+def prefix_inputs(n_ch: int, n: int) -> tuple[np.ndarray, ...]:
+    """K2's inputs at one shape: random samples and phases
+    (tests/test_pallas_prefix.py's) in a capture of 3n samples, cursors
+    spread over it with two windows past its end, a third of the windows
+    with blk < n: (capture, cursor, blk, base, slope)."""
+    from bds3_tpu_torch.track import prefix
+
+    total = 3 * n
+    capture, base, slope = prefix.random_inputs(7, n_ch, n, total)
+    cursor = np.linspace(0, 2 * n, n_ch).astype(np.int64)
+    cursor[-2:] = (total - n // 2, total - 1000)
+    blk = np.full(n_ch, n - 2, np.int64)
+    blk[::3] = n - 5000
+    return capture, cursor, blk, base, slope
+
+
+def prefix_bound(capture, cursor, blk, base, n: int) -> tuple[float, str]:
+    """K2's bound: each valid int8 sample read once, the two float32 prefix
+    rows (n + 1 each) written once, the phase tables read; 12 operations a
+    sample (the carrier as in track_fused_bound's 10, and one add for each
+    prefix)."""
+    valid = np.clip(np.minimum(blk, n), 0, len(capture) - cursor).sum()
+    return roofline_ms(12.0 * valid,
+                       valid + 2 * len(cursor) * (n + 1) * 4 + base.nbytes)
+
+
+def device_time(fn, reps: int = 20) -> tuple[float | None, float]:
+    """The device's time per call of fn() (ms) under torch.profiler over
+    `reps` calls after a warm one, and its kernel launches per call; (None,
+    0) where the profiler saw no device activity.  Each kernel counts its
+    mean duration times its launches per call, so an event the profiler
+    drops does not shorten the time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = per_name.get(e.name, (0, 0.0))
+            per_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    if not per_name:
+        return None, 0.0
+    calls = {k: max(1, round(n / reps)) for k, (n, _) in per_name.items()}
+    ms = sum(us / n * calls[k] for k, (n, us) in per_name.items()) * 1e-3
+    kernels = sum(calls[k] for k in calls
+                  if not k.startswith(("Memcpy", "Memset")))
+    return ms, float(kernels)
+
+
+def _prefix_check(label: str, host, n: int) -> dict:
+    """K2 against its plain version and the float64 oracle within
+    PREFIX_TOL, and against a second call bit for bit, each on fresh
+    buffers: its errors, the kernel's result and the device arguments."""
+    import torch
+
+    from bds3_tpu_torch.track import prefix
+
+    dev = torch.device("cuda")
+    args = tuple(torch.from_numpy(a).to(dev) for a in host) + (n,)
+    k = prefix.mix_prefix(*args)
+    again = prefix.mix_prefix(*args)
+    r = prefix.mix_prefix_reference(*args)
+    torch.cuda.synchronize()
+    o = prefix.mix_prefix_float64(*host, n)
+    scale = np.abs(o[0]).max(axis=1, keepdims=True) + 1.0
+    kn = tuple(t.cpu().numpy() for t in k)
+    rn = tuple(t.cpu().numpy() for t in r)
+
+    def worst(a, b):                  # scaled, over P_i and P_q
+        return float(max((np.abs(a[0] - b[0]) / scale).max(),
+                         (np.abs(a[1] - b[1]) / scale).max()))
+
+    err = {"kernel_vs_oracle_scaled": worst(kn, o),
+           "plain_vs_oracle_scaled": worst(rn, o),
+           "kernel_vs_plain_scaled": worst(kn, rn)}
+    bad = {key: v for key, v in err.items() if not v <= PREFIX_TOL}
+    if bad:
+        raise AssertionError(f"mix_prefix {label}: beyond {PREFIX_TOL} "
+                             f"of max|P_i|+1: {bad}")
+    if not (torch.equal(k[0], again[0]) and torch.equal(k[1], again[1])):
+        raise AssertionError(f"mix_prefix {label}: two calls on the same "
+                             "inputs differ")
+    err["max_abs_err"] = float(max(np.abs(kn[0] - rn[0]).max(),
+                                   np.abs(kn[1] - rn[1]).max()))
+    err["max_abs_P"] = float(scale.max())
+    return {"err": err, "result": kn, "args": args}
+
+
+def prefix_edge_cases():
+    """(label, n, cursor, blk) of the edge windows, in a 50,000-sample
+    capture: a window shorter than one tile, n = 1, blk <= 0, cursors
+    below 0 and past the capture's end."""
+    total = 50_000
+    return (("n_lt_tile", 3000, [0, 1234, total - 100], [3000, 2000, 3000]),
+            ("n_1", 1, [0, 5, total - 1], [1, 1, 0]),
+            ("blk_le_0", 3 * 4096 + 5, [0, 100, 200], [0, -7, 3 * 4096 + 5]),
+            ("cursor_below_0", 2 * 4096 + 17, [-5000, -1, -20_000],
+             [10**6] * 3),
+            ("cursor_past_end", 2 * 4096 + 17, [total, total + 5, total - 3],
+             [2 * 4096 + 17] * 3))
+
+
 def phase_prefix() -> dict:
     """mix_prefix against its plain version and the float64 oracle at the
-    epoch widths of prefix_shapes; random samples and phases
-    (tests/test_pallas_prefix.py's), two windows past the capture's end, a
-    third of the windows with blk < n."""
+    epoch widths of prefix_shapes (prefix_inputs) and at the edge windows
+    of prefix_edge_cases, within PREFIX_TOL.  Every call is repeated on
+    fresh buffers and must give the same bits.  One scratch, made for the
+    largest shape, serves the shapes' windows at two sets of cursors and
+    every edge window, and must give what fresh buffers give, bit for bit;
+    edge windows that read no sample must be all zeros.  Times at each
+    shape: back-to-back calls with output and scratch made once (ms),
+    made anew each call (ms_alloc), the plain version, and one
+    torch.cumsum over a pre-mixed (2C, n) float32 tensor: a scan that does
+    less work than K2 (no mix and no carry; it reads 4 bytes a sample and
+    component), not a call that computes the same function; then, after
+    all of them, the device's own time under the profiler.  main() runs
+    this phase last."""
+    import functools
+
     import torch
 
     from bds3_tpu_torch.track import prefix
     from bds3_tpu_torch.track.state import make_track_config
 
     dev = torch.device("cuda")
-    out = {"phase": "prefix_vs_plain", "tolerance_scaled": PREFIX_TOL}
-    for label, s, n_ch in prefix_shapes():
+    out = {"phase": "prefix_vs_plain", "tolerance_scaled": PREFIX_TOL,
+           "scan_only": "one torch.cumsum over pre-mixed (2C, n) float32: "
+                        "less work than K2 (no mix, no carry), not the "
+                        "same function"}
+    shapes = [(label, n_ch, make_track_config(s).n_max)
+              for label, s, n_ch in prefix_shapes()]
+    runs = {}                         # each shape's call, buffers made once
+    shared = torch.zeros(max([prefix.scratch_words(c, n)
+                              for _, c, n in shapes]
+                             + [prefix.scratch_words(len(cursor), n)
+                                for _, n, cursor, _ in prefix_edge_cases()]),
+                         dtype=torch.int64, device=dev)
+    for label, n_ch, n in shapes:
         t0 = time.perf_counter()
-        n = make_track_config(s).n_max
-        total = 3 * n
-        capture, base, slope = prefix.random_inputs(7, n_ch, n, total)
-        cursor = np.linspace(0, 2 * n, n_ch).astype(np.int64)
-        cursor[-2:] = (total - n // 2, total - 1000)
-        blk = np.full(n_ch, n - 2, np.int64)
-        blk[::3] = n - 5000
-        args = tuple(torch.from_numpy(a).to(dev)
-                     for a in (capture, cursor, blk, base, slope)) + (n,)
-        k_i, k_q = prefix.mix_prefix(*args)
-        r_i, r_q = prefix.mix_prefix_reference(*args)
-        torch.cuda.synchronize()
-        o_i, o_q = prefix.mix_prefix_float64(capture, cursor, blk, base,
-                                             slope, n)
-        scale = np.abs(o_i).max(axis=1, keepdims=True) + 1.0
-        got = {"kernel": (k_i.cpu().numpy(), k_q.cpu().numpy()),
-               "plain": (r_i.cpu().numpy(), r_q.cpu().numpy())}
-        err = {}
-        for name, (g_i, g_q) in got.items():
-            err[f"{name}_vs_oracle_scaled"] = float(max(
-                (np.abs(g_i - o_i) / scale).max(),
-                (np.abs(g_q - o_q) / scale).max()))
-        (g_i, g_q), (p_i, p_q) = got["kernel"], got["plain"]
-        abs_err = float(max(np.abs(g_i - p_i).max(), np.abs(g_q - p_q).max()))
-        err["kernel_vs_plain_scaled"] = float(max(
-            (np.abs(g_i - p_i) / scale).max(),
-            (np.abs(g_q - p_q) / scale).max()))
-        bad = {k: v for k, v in err.items() if not v <= PREFIX_TOL}
-        if bad:
-            raise AssertionError(f"mix_prefix {label}: beyond {PREFIX_TOL} "
-                                 f"of max|P_i|+1: {bad}")
-        kernel_ms = time_call(lambda: prefix.mix_prefix(*args), reps=20)
+        host = prefix_inputs(n_ch, n)
+        chk = _prefix_check(label, host, n)
+        args = chk["args"]
+        for shift in (0, 12_345):             # the shared scratch
+            moved = (args[0], args[1] + shift) + args[2:]
+            want = prefix.mix_prefix(*moved)
+            got = prefix.mix_prefix(*moved, scratch=shared)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"mix_prefix {label}: the shared "
+                                     f"scratch changed the result (+{shift})")
+        bufs, scratch = prefix.buffers(n_ch, n, dev)
+        runs[label] = functools.partial(prefix.mix_prefix, *args, out=bufs,
+                                        scratch=scratch)
+        kernel_ms = time_call(runs[label], reps=20)
+        alloc_ms = time_call(lambda: prefix.mix_prefix(*args), reps=20)
         plain_ms = time_call(lambda: prefix.mix_prefix_reference(*args),
                              reps=5)
-        # K2's bound: each valid int8 sample read once, the two float32
-        # prefix rows (n + 1 each) written once, the phase tables read;
-        # 12 operations a sample (the carrier as in track_fused_bound's
-        # 10, and one add for each prefix)
-        valid = np.clip(np.minimum(blk, n), 0, total - cursor).sum()
-        bound_ms, bound_by = roofline_ms(
-            12.0 * valid, valid + 2 * n_ch * (n + 1) * 4 + base.nbytes)
-        out[label] = {"channels": n_ch, "n": n, **err,
+        mixed = torch.randn(2 * n_ch, n, device=dev)
+        scanned = torch.empty_like(mixed)
+        scan_ms = time_call(lambda: torch.cumsum(mixed, 1, out=scanned),
+                            reps=20)
+        bound_ms, bound_by = prefix_bound(*host[:4], n)
+        out[label] = {"channels": n_ch, "n": n, **chk["err"],
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "max_abs_err": abs_err, "max_abs_P": float(scale.max()),
-                      "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                      "kernel_ms": kernel_ms, "kernel_ms_alloc": alloc_ms,
+                      "plain_ms": plain_ms, "scan_only_ms": scan_ms,
                       "seconds": time.perf_counter() - t0}
+        del mixed, scanned
+    edges = {}
+    for label, n, cursor, blk in prefix_edge_cases():
+        capture, base, slope = prefix.random_inputs(9, len(cursor), n,
+                                                    50_000)
+        host = (capture, np.array(cursor, np.int64), np.array(blk, np.int64),
+                base, slope)
+        chk = _prefix_check(label, host, n)
+        got = prefix.mix_prefix(*chk["args"], scratch=shared)
+        got = tuple(t.cpu().numpy() for t in got)
+        if not all(np.array_equal(g, w) for g, w in zip(got, chk["result"])):
+            raise AssertionError(f"mix_prefix {label}: the shared scratch "
+                                 "changed the result")
+        reads = ((np.minimum(host[2], n) > 0) & (host[1] < 50_000)
+                 & (host[1] + n > 0))
+        if np.stack(got)[:, ~reads].any():
+            raise AssertionError(f"mix_prefix {label}: a window that reads "
+                                 "no sample is not all zeros")
+        edges[label] = {"n": n, **chk["err"]}
+    out["edges"] = edges
+    # the device's own time, after every CUDA-event time of the phase
+    for label, run in runs.items():
+        device_ms, kernels = device_time(run)
+        busy = device_ms if device_ms is not None else out[label]["kernel_ms"]
+        out[label].update(
+            device_ms=device_ms, kernels_per_call=kernels,
+            device_ms_source=("profiler" if device_ms is not None
+                              else "cuda_events"),
+            bounded_by=("host" if out[label]["kernel_ms"] > 1.2 * busy
+                        else "device"),
+            share_of_bound=out[label]["bound_ms"] / busy)
     emit(out)
     return out
 
@@ -1455,7 +1608,6 @@ def main() -> int:
     caps = Captures()
     try:
         build_s = phase_build()
-        pre = phase_prefix()
         mxu = phase_mxu_micro()
         small = phase_kernel_small()
         full = phase_kernel_full()
@@ -1468,6 +1620,8 @@ def main() -> int:
         b1c = phase_b1c_track(caps)
         rx_b1c = phase_receiver_b1c(caps)
         rx_wb = phase_receiver_b1c_wb(caps)
+        # last: its profiler may leave the driver slower for later phases
+        pre = phase_prefix()
     finally:
         caps.stop()
     if "jax" in sys.modules:
@@ -1521,14 +1675,22 @@ def main() -> int:
         "launches_by_path": {
             "b1c_nb_track_bucket_pallas":
                 nb["bucket_pallas"]["launches"]["mix_prefix"]},
-        "max_abs_err": max(pre[label]["max_abs_err"]
-                           for label, _, _ in prefix_shapes()),
-        # one B1C epoch, 10 channels
+        "max_abs_err": max([pre[label]["max_abs_err"]
+                            for label, _, _ in prefix_shapes()]
+                           + [e["max_abs_err"]
+                              for e in pre["edges"].values()]),
+        # one B1C epoch, 10 channels: back-to-back calls with output and
+        # scratch made once; the device's own time beside them
         "ms": k2["kernel_ms"],
+        "device_ms": k2["device_ms"],
+        "kernels_per_call": k2["kernels_per_call"],
         "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
+        # no single library call computes K2; one torch.cumsum over
+        # pre-mixed samples does less work (no mix, no carry)
         "library_ms": None,
+        "scan_only_ms": k2["scan_only_ms"],
     }, {
         "name": "mxu_micro",
         "route": "cuda",

@@ -28,6 +28,7 @@ from bds3_tpu_torch.track.prefix import (
     buffers,
     mix_prefix_reference,
     random_inputs,
+    scratch_words,
 )
 from bds3_tpu_torch.track.scan import (
     TrackState,
@@ -198,10 +199,82 @@ def test_mix_prefix_rejects_what_the_kernel_does_not_take(cuda):
     out, scratch = buffers(len(cursor), n, capture.device)
     with pytest.raises(ValueError):
         mix_prefix(capture, cursor, blk, base, slope, n, out=out,
-                   scratch=scratch[:, :-1].contiguous())
+                   scratch=scratch[:-1].contiguous())
     with pytest.raises(ValueError):
         mix_prefix(capture, cursor, blk, base, slope, n, out=out,
                    scratch=scratch.cpu())
+    with pytest.raises(TypeError):
+        mix_prefix(capture, cursor, blk, base, slope, n, out=out,
+                   scratch=scratch.float())
+
+
+def test_mix_prefix_is_repeatable(cuda):
+    """Two calls on the same inputs, on fresh buffers and on one reused
+    pair, give the same bits: the float64 carries are summed in a fixed
+    order, whatever order the blocks run in.  One launch each."""
+    args, _ = _prefix_args(cuda, n=40 * SPLIT + 3)
+    out, scratch = buffers(len(args[1]), args[-1], cuda)
+    before = mix_prefix.launches
+    first = [t.clone() for t in mix_prefix(*args)]
+    for got in (mix_prefix(*args), mix_prefix(*args, out=out,
+                                              scratch=scratch),
+                mix_prefix(*args, out=out, scratch=scratch)):
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])
+    assert mix_prefix.launches == before + 4
+
+
+def test_mix_prefix_scratch_serves_later_calls(cuda):
+    """One scratch, made for the largest shape, serves calls of other
+    shapes and cursors in turn with no action between them, and gives
+    what fresh buffers give, bit for bit."""
+    _, shared = buffers(3, 9 * SPLIT, cuda)
+    for n, shift in ((9 * SPLIT, 0), (SPLIT + 1, 0), (5 * SPLIT + 77, 1000),
+                     (9 * SPLIT, 2000), (100, 5), (5 * SPLIT + 77, 0)):
+        args, _ = _prefix_args(cuda, n=n)
+        args = (args[0], args[1] + shift) + args[2:]
+        want = mix_prefix(*args)
+        got = mix_prefix(*args, scratch=shared)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert shared.numel() == scratch_words(3, 9 * SPLIT)
+
+
+@pytest.mark.parametrize("n,cursor,blk", [
+    (3000, [0, 1234, 59_900], [3000, 2000, 3000]),          # n < 4096
+    (1, [0, 5, 59_999], [1, 1, 0]),                         # n = 1
+    (3 * SPLIT + 5, [0, 100, 200], [0, -7, 3 * SPLIT + 5]),  # blk <= 0
+    (2 * SPLIT + 17, [-5000, -1, -20_000], [10**6] * 3),    # cursor < 0
+    (2 * SPLIT + 17, [60_000, 60_005, 59_997], [10**6] * 3),  # past the end
+], ids=["n_lt_tile", "n_1", "blk_le_0", "cursor_below_0", "cursor_past_end"])
+def test_mix_prefix_edge_windows(cuda, n, cursor, blk):
+    """Windows at the edges, one launch each: within 5e-4 of max|P_i| + 1
+    of the plain version and the oracle, and exactly zero where the window
+    reads no sample."""
+    total = 60_000
+    capture, base, slope = random_inputs(4, len(cursor), n, total)
+    args = (torch.from_numpy(capture).to(cuda),
+            torch.tensor(cursor, device=cuda), torch.tensor(blk, device=cuda),
+            torch.from_numpy(base).to(cuda), torch.from_numpy(slope).to(cuda),
+            n)
+    before = mix_prefix.launches
+    k_i, k_q = mix_prefix(*args)
+    assert mix_prefix.launches == before + 1
+    r_i, r_q = mix_prefix_reference(*args)
+    torch.cuda.synchronize()
+    want_i, want_q = mix_prefix_float64(capture, np.array(cursor),
+                                        np.array(blk), base, slope, n)
+    cursor, blk = np.array(cursor), np.array(blk)
+    reads = (np.minimum(blk, n) > 0) & (cursor < total) & (cursor + n > 0)
+    for got_i, got_q in ((k_i, k_q), (r_i, r_q)):
+        got_i, got_q = got_i.cpu().numpy(), got_q.cpu().numpy()
+        for c in range(len(cursor)):
+            scale = np.abs(want_i[c]).max() + 1.0
+            np.testing.assert_allclose(got_i[c] / scale, want_i[c] / scale,
+                                       atol=5e-4)
+            np.testing.assert_allclose(got_q[c] / scale, want_q[c] / scale,
+                                       atol=5e-4)
+        assert not got_i[~reads].any() and not got_q[~reads].any()
 
 
 @pytest.mark.parametrize("mode", [TrackMode.NARROWBAND, TrackMode.DATA_ONLY])

@@ -1,6 +1,8 @@
 """The mix+prefix kernel's plain version (bds3_tpu_torch.track.prefix)
 against a float64 numpy oracle and against the JAX Pallas kernel run in
-interpret mode, as tests/test_pallas_prefix.py runs it, on the CPU.
+interpret mode, as tests/test_pallas_prefix.py runs it, on the CPU; the
+buffers the kernel takes and the checks its wrapper makes on them; and the
+edge windows chip_smoke.py holds the kernel to on the card.
 
 The tolerance is tests/test_pallas_prefix.py's: 5e-4 of max|P_i| + 1 per
 channel, since a float32 prefix over many samples is held to a float64
@@ -9,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from bds3_tpu.track.pallas_prefix import mix_prefix as jax_mix_prefix
 from bds3_tpu_torch.track.prefix import (
     SPLIT,
@@ -16,7 +19,9 @@ from bds3_tpu_torch.track.prefix import (
     mix_prefix,
     mix_prefix_float64,
     mix_prefix_reference,
+    n_tiles,
     random_inputs,
+    scratch_words,
 )
 
 torch.set_num_threads(2)
@@ -102,3 +107,92 @@ def test_wrapper_runs_reference_on_cpu():
         assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
     with pytest.raises(ValueError):
         mix_prefix(args[0].to("meta"), *args[1:])
+
+
+@pytest.mark.parametrize("c,n", [(1, 1), (3, SPLIT), (10, 993_754),
+                                 (5, 60_003)])
+def test_buffers_make_the_kernels_scratch(c, n):
+    """Two (C, n + 1) float32 outputs and the kernel's scratch: int64 zeros,
+    a ticket counter and a generation, then the I and Q totals of each
+    (channel, tile)."""
+    (p_i, p_q), scratch = buffers(c, n, "cpu")
+    for p in (p_i, p_q):
+        assert p.shape == (c, n + 1) and p.dtype == torch.float32
+    assert scratch_words(c, n) == 2 + 2 * c * n_tiles(n)
+    assert scratch.shape == (scratch_words(c, n),)
+    assert scratch.dtype == torch.int64 and scratch.is_contiguous()
+    assert not scratch.any()
+
+
+def _scratch_cases(c, n):
+    words = scratch_words(c, n)
+    return {
+        "float32": (torch.zeros(words, dtype=torch.float32), TypeError),
+        "one_word_short": (torch.zeros(words - 1, dtype=torch.int64),
+                           ValueError),
+        "two_dimensional": (torch.zeros(1, words, dtype=torch.int64),
+                            ValueError),
+        "strided": (torch.zeros(2 * words, dtype=torch.int64)[::2],
+                    ValueError),
+        "foreign_device": (torch.zeros(words, dtype=torch.int64,
+                                       device="meta"), ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", list(_scratch_cases(2, 5)))
+def test_wrapper_refuses_a_foreign_or_misshaped_scratch(case):
+    """The wrapper checks the scratch on any device, as the kernel needs
+    it: int64, one dimension, contiguous, on the inputs' device, at least
+    scratch_words(c, n) long.  A longer one (made for a larger shape) is
+    taken."""
+    n = 2 * SPLIT + 5
+    capture, base, slope = random_inputs(2, 2, n, 20_000)
+    args = (torch.from_numpy(capture), torch.tensor([3, 11_000]),
+            torch.tensor([n, 7000]), torch.from_numpy(base),
+            torch.from_numpy(slope), n)
+    scratch, error = _scratch_cases(2, n)[case]
+    with pytest.raises(error):
+        mix_prefix(*args, scratch=scratch)
+    out, _ = buffers(2, n, "cpu")
+    with pytest.raises(ValueError):
+        mix_prefix(*args, out=(out[0][:, :-1], out[1]))
+    larger = buffers(3, 4 * n, "cpu")[1]
+    got = mix_prefix(*args, out=out, scratch=larger)
+    want = mix_prefix_reference(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("label,n,cursor,blk", chip_smoke.prefix_edge_cases(),
+                         ids=[e[0] for e in chip_smoke.prefix_edge_cases()])
+def test_reference_at_chip_smokes_edge_windows(label, n, cursor, blk):
+    """The edge windows chip_smoke.py holds the kernel to (n < 4096, n = 1,
+    blk <= 0, cursors below 0 and past the capture's end): the plain
+    version within the tolerance of the oracle, and exactly zero where the
+    window reads no sample."""
+    capture, base, slope = random_inputs(9, len(cursor), n, 50_000)
+    got = _run_reference(capture, cursor, blk, base, slope, n)
+    want = mix_prefix_float64(capture, np.array(cursor), np.array(blk), base,
+                              slope, n)
+    _assert_prefix_close(*got, *want)
+    cursor, blk = np.array(cursor), np.array(blk)
+    reads = (np.minimum(blk, n) > 0) & (cursor < 50_000) & (cursor + n > 0)
+    for p in got:
+        assert not p[~reads].any()
+        assert p[reads].any()
+
+
+def test_chip_smoke_prefix_inputs_and_bound():
+    """chip_smoke's K2 inputs at a shape (tools/k2_times.py times the same)
+    and its bound: the valid samples read once and both rows written once
+    over 3.35 TB/s."""
+    n_ch, n = 4, 3 * SPLIT + 11
+    capture, cursor, blk, base, slope = chip_smoke.prefix_inputs(n_ch, n)
+    assert capture.shape == (3 * n,) and capture.dtype == np.int8
+    assert cursor.dtype == blk.dtype == np.int64 and len(cursor) == n_ch
+    assert base.shape == (n_ch, n_tiles(n)) and slope.shape == (n_ch,)
+    assert (blk < n).all() and (cursor + n > len(capture)).sum() == 2
+    ms, by = chip_smoke.prefix_bound(capture, cursor, blk, base, n)
+    valid = sum(min(b, len(capture) - c) for c, b in zip(cursor, blk))
+    assert by == "bytes"
+    assert ms == pytest.approx((valid + 8 * n_ch * (n + 1) + base.nbytes)
+                               / 3.35e12 * 1e3)

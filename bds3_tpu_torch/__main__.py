@@ -5,8 +5,9 @@
 
 The same options as `python -m bds3_tpu`, plus --device.  `--signal b1c`
 runs the B1C preset (wideband, with resampled acquisition above 15 Msps).
-`--transport int4|int2` packs the capture for its host->device upload.
-What the port does not cover yet (IQ captures) exits with an error before
+`--file-type 2` reads an IQ8 capture (interleaved int8 I/Q), tracked as
+complex samples.  `--transport int4|int2` packs a real capture for its
+host->device upload; with an IQ8 capture it exits with an error before
 the file is opened.
 """
 from __future__ import annotations
@@ -93,8 +94,8 @@ def main(argv=None):
         overrides["ldpc_decode"] = True
     s = (b2a_settings if args.signal == "b2a" else b1c_settings)(**overrides)
     try:
-        check_ported(s)
-    except NotImplementedError as e:
+        check_ported(s, args.transport)
+    except ValueError as e:
         p.error(str(e))
 
     f = IFDataFile.open(args.file, s.file_type, s.skip_samples)

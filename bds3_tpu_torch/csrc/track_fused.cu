@@ -11,7 +11,12 @@
 // wideband QMBOC (those two, plus the pilot's BOC(6,1) component at m = 12
 // with its own coarse code-phase table and, for the "split" blend, its own
 // E-L spacing), with the composite pilot and the four code blends
-// (pallas_fused.py:1019-1073, scan.py:243-296).
+// (pallas_fused.py:1019-1073, scan.py:243-296).  The capture is real int8,
+// real float32 or complex64 (pallas_fused.py:1221-1229 hands the TPU
+// kernel the last as two float32 planes); the kernel is a template on the
+// sample's load and mix (struct Capture below), with one instance of each,
+// chosen by the dtype code the wrapper passes.  Everything after the mix
+// is the same for the three.
 //
 // Design.  One thread-block cluster of S blocks per channel, S chosen on
 // the host (fused.py:cluster_size): the largest of 16, 8, 4, 2, 1 for which
@@ -26,8 +31,8 @@
 // the epoch length n from that state, and cluster rank r takes the
 // contiguous slice [r*ceil(n/S), min(n, (r+1)*ceil(n/S))) of the epoch's
 // samples (fused.py:rank_slice), which keeps the capture reads coalesced.
-// Its threads stride over the slice: load the int8 sample, mix it with
-// the local carrier, and add it, signed by its chip, into up to 18 sums
+// Its threads stride over the slice: load the sample, mix it with the
+// local carrier, and add it, signed by its chip, into up to 18 sums
 // (I/Q x early/prompt/late x data/pilot BOC(1,1)/pilot BOC(6,1)).  The
 // block reduces its threads' sums in float64 (warp shuffles, then one
 // partial per warp) and writes its 18 partials into its own shared memory,
@@ -71,16 +76,17 @@
 //
 // What bounds it.  Each sample costs one sincosf, three chip-index
 // computations (six for B1C wideband) and up to twelve signed float64 adds
-// (eighteen); the int8 capture is read once (about 10^8 bytes per second
-// of signal, far below the card's bandwidth).  Spread over C*S SMs, the
-// per-sample work shrinks by S; what does not shrink is the per-epoch
-// chain: one block reduction, one cluster barrier, the distributed
-// partial reads and the scalar tail, W times per launch (4-10 us an
-// epoch on the H100, PERF.md).  Staging the
-// window with cp.async and capturing short blocks in a CUDA graph are
-// later work.  None of the TPU kernel's machinery is carried over (prefix
-// scratch, MXU one-hot selects, boundary tiles, the 4096-aligned DMA
-// ring): the direct sum here is the same sum as its bucket form,
+// (eighteen), and a complex sample four more multiplies and adds; the
+// capture is read once (1, 4 or 8 bytes a sample: at most about 8 x 10^8
+// bytes per second of signal, far below the card's bandwidth).  Spread
+// over C*S SMs, the per-sample work shrinks by S; what does not shrink is
+// the per-epoch chain: one block reduction, one cluster barrier, the
+// distributed partial reads and the scalar tail, W times per launch (4-10
+// us an epoch on the H100, PERF.md).  Staging the window with cp.async
+// and capturing short blocks in a CUDA graph are later work.  None of the
+// TPU kernel's machinery is carried over (prefix scratch, MXU one-hot
+// selects, boundary tiles, the 4096-aligned DMA ring): the direct sum
+// here is the same sum as its bucket form,
 // regrouped (scan.py:171-173).
 //
 // Shared memory of one block (fused.py:_smem_bytes mirrors it): the warp
@@ -97,9 +103,9 @@
 // version.  So:
 //  * the file is compiled with -fmad=false (bds3_tpu_torch/_build.py):
 //    nvcc would otherwise fuse a*b+c into one FMA and move the float32
-//    rounding of `resid` (scan.py:128-130) and of `frac` (scan.py:87) off
-//    PyTorch's, which runs each operation on its own.  Never build with
-//    --use_fast_math;
+//    rounding of `resid` (scan.py:128-130), of `frac` (scan.py:87) and of
+//    the complex mix (xr*c + xi*s) off PyTorch's, which runs each
+//    operation on its own.  Never build with --use_fast_math;
 //  * every expression keeps the reference's operation order, and divisions
 //    by configuration constants are multiplications by the float32
 //    reciprocal, as the plain version writes them;
@@ -177,6 +183,57 @@ struct Acc {
   __device__ __forceinline__ double value() const { return s; }
 };
 // </acc>
+
+// The capture kinds (fused.py:CAPTURE_KINDS), each a load of sample g
+// (zero outside [0, total)) and its mix with the local carrier e^{-j
+// theta}, cs = cos(theta) and sn = sin(theta) (scan.py:_mix): a real
+// sample x gives (x cs, -(x sn)); a complex one, stored as interleaved
+// (I, Q) float pairs (torch.view_as_real's layout), gives (I cs + Q sn,
+// Q cs - I sn), four products and two sums each rounded on its own.
+#define CAPTURE_INT8 0
+#define CAPTURE_FLOAT32 1
+#define CAPTURE_COMPLEX64 2
+
+struct RealMix {
+  using S = float;
+  static __device__ __forceinline__ void mix(S x, float cs, float sn,
+                                            float* ib, float* qb) {
+    *ib = x * cs;
+    *qb = -(x * sn);
+  }
+};
+
+template <int KIND> struct Capture;
+
+template <> struct Capture<CAPTURE_INT8> : RealMix {
+  using T = int8_t;
+  static __device__ __forceinline__ S load(const T* cap, long long g,
+                                           long long total) {
+    return (g >= 0 && g < total) ? (float)cap[g] : 0.0f;
+  }
+};
+
+template <> struct Capture<CAPTURE_FLOAT32> : RealMix {
+  using T = float;
+  static __device__ __forceinline__ S load(const T* cap, long long g,
+                                           long long total) {
+    return (g >= 0 && g < total) ? cap[g] : 0.0f;
+  }
+};
+
+template <> struct Capture<CAPTURE_COMPLEX64> {
+  using T = float2;
+  using S = float2;
+  static __device__ __forceinline__ S load(const T* cap, long long g,
+                                           long long total) {
+    return (g >= 0 && g < total) ? cap[g] : make_float2(0.0f, 0.0f);
+  }
+  static __device__ __forceinline__ void mix(S x, float cs, float sn,
+                                            float* ib, float* qb) {
+    *ib = x.x * cs + x.y * sn;
+    *qb = x.y * cs - x.x * sn;
+  }
+};
 
 __device__ __forceinline__ float mod1(float x) {
   float r = fmodf(x, 1.0f);
@@ -279,8 +336,10 @@ __device__ __forceinline__ int chip_index(float base_m, float ck_frac,
   return idx < 0 ? idx + lm : idx;
 }
 
+template <int KIND>
 __global__ void __launch_bounds__(THREADS)
-track_fused_kernel(const int8_t* __restrict__ capture, long long total,
+track_fused_kernel(const typename Capture<KIND>::T* __restrict__ capture,
+                   long long total,
                    const int8_t* __restrict__ code,    // (C, taps, table_len)
                    const int* __restrict__ ck_int,     // (k_max,)
                    const float* __restrict__ ck_frac,  // (k_max,)
@@ -378,8 +437,8 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
     for (int i = 0; i < N_ACC; ++i) acc[i].zero();
 
     for (int j = lo + tid; j < hi; j += THREADS) {
-      const long long g = cursor + j;
-      const float x = (g >= 0 && g < total) ? (float)capture[g] : 0.0f;
+      const typename Capture<KIND>::S x =
+          Capture<KIND>::load(capture, cursor + j, total);
       const int k = j / SPLIT;
       const float r_f = (float)(j % SPLIT);
       const float j_f = (float)j;
@@ -387,8 +446,8 @@ track_fused_kernel(const int8_t* __restrict__ capture, long long total,
       const float cyc = mod1(((s_carr[k] + rem_cyc) + r_f * ab) + j_f * d_cyc);
       float sn, cs;
       sincosf(p.two_pi * cyc, &sn, &cs);
-      const float ib = x * cs;
-      const float qb = -(x * sn);
+      float ib, qb;
+      Capture<KIND>::mix(x, cs, sn, &ib, &qb);
       const double ib_d = (double)ib, qb_d = (double)qb;
       const float rsm = r_f * p.sm;
       const float jd = j_f * dsm;
@@ -526,13 +585,14 @@ static size_t smem_bytes(const TrackParams& p) {
   return b;
 }
 
+template <int KIND>
 static cudaError_t set_attributes(size_t smem) {
   const cudaError_t err = cudaFuncSetAttribute(
-      track_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      track_fused_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   // clusters of 16 are beyond the portable 8
-  return cudaFuncSetAttribute(track_fused_kernel,
+  return cudaFuncSetAttribute(track_fused_kernel<KIND>,
                               cudaFuncAttributeNonPortableClusterSizeAllowed,
                               1);
 }
@@ -555,61 +615,99 @@ static cudaLaunchConfig_t launch_config(const TrackParams& p, int cluster,
   return cfg;
 }
 
-// For each cluster size sizes[i], how many clusters of it the card holds
-// at once with this config's shared memory and block size
-// (cudaOccupancyMaxActiveClusters); -(error code) where the query fails
-// (a size the card does not take).  Returns 0, or the error of setting the
-// kernel's attributes.
-extern "C" int bds3_track_cluster_occupancy(const TrackParams* params,
-                                            int n_sizes, const int* sizes,
-                                            int* counts) {
-  const TrackParams p = *params;
+template <int KIND>
+static int occupancy(const TrackParams& p, int n_sizes, const int* sizes,
+                     int* counts) {
   const size_t smem = smem_bytes(p);
-  const cudaError_t err = set_attributes(smem);
+  const cudaError_t err = set_attributes<KIND>(smem);
   if (err != cudaSuccess) return (int)err;
   for (int i = 0; i < n_sizes; ++i) {
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = launch_config(p, sizes[i], smem, 0, &attr);
     int n = 0;
     const cudaError_t e =
-        cudaOccupancyMaxActiveClusters(&n, track_fused_kernel, &cfg);
+        cudaOccupancyMaxActiveClusters(&n, track_fused_kernel<KIND>, &cfg);
     counts[i] = e == cudaSuccess ? n : -(int)e;
     cudaGetLastError();   // a refused size is an answer, not a fault
   }
   return 0;
 }
 
-// Host entry point, called through ctypes.  Launches C clusters of
-// `cluster` blocks on `stream` and does not synchronize; returns the
-// launch's error, else cudaGetLastError() (0 on success).
-extern "C" int bds3_track_fused(const void* capture, long long total,
-                                const void* code, const void* ck_int,
-                                const void* ck_frac, const void* code61,
-                                const void* ck61_int, const void* ck61_frac,
-                                const void* carr_t, const void* a_base,
-                                const void* q0_cyc, const void* init_dstep,
-                                const void* state_in, const void* cursor_in,
-                                void* out, void* state_out, void* cursor_out,
-                                int cluster, const TrackParams* params,
-                                void* stream) {
-  const TrackParams p = *params;
+// For each cluster size sizes[i], how many clusters of it the card holds
+// at once with this config's shared memory and block size for the
+// instance of capture kind `kind` (cudaOccupancyMaxActiveClusters);
+// -(error code) where the query fails (a size the card does not take).
+// Returns 0, or the error of setting the kernel's attributes.
+extern "C" int bds3_track_cluster_occupancy(const TrackParams* params,
+                                            int kind, int n_sizes,
+                                            const int* sizes, int* counts) {
+  switch (kind) {
+    case CAPTURE_INT8:
+      return occupancy<CAPTURE_INT8>(*params, n_sizes, sizes, counts);
+    case CAPTURE_FLOAT32:
+      return occupancy<CAPTURE_FLOAT32>(*params, n_sizes, sizes, counts);
+    case CAPTURE_COMPLEX64:
+      return occupancy<CAPTURE_COMPLEX64>(*params, n_sizes, sizes, counts);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int KIND>
+static int launch(const void* capture, long long total, const void* code,
+                  const void* ck_int, const void* ck_frac, const void* code61,
+                  const void* ck61_int, const void* ck61_frac,
+                  const void* carr_t, const void* a_base, const void* q0_cyc,
+                  const void* init_dstep, const void* state_in,
+                  const void* cursor_in, void* out, void* state_out,
+                  void* cursor_out, int cluster, const TrackParams& p,
+                  void* stream) {
   const size_t smem = smem_bytes(p);
-  cudaError_t err = set_attributes(smem);
+  cudaError_t err = set_attributes<KIND>(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       launch_config(p, cluster, smem, (cudaStream_t)stream, &attr);
   err = cudaLaunchKernelEx(
-      &cfg, track_fused_kernel, (const int8_t*)capture, total,
-      (const int8_t*)code, (const int*)ck_int, (const float*)ck_frac,
-      (const int8_t*)code61, (const int*)ck61_int, (const float*)ck61_frac,
-      (const float*)carr_t, (const float*)a_base, (const float*)q0_cyc,
-      (const float*)init_dstep, (const float*)state_in,
-      (const long long*)cursor_in, (float*)out, (float*)state_out,
-      (long long*)cursor_out, p);
+      &cfg, track_fused_kernel<KIND>,
+      (const typename Capture<KIND>::T*)capture, total, (const int8_t*)code,
+      (const int*)ck_int, (const float*)ck_frac, (const int8_t*)code61,
+      (const int*)ck61_int, (const float*)ck61_frac, (const float*)carr_t,
+      (const float*)a_base, (const float*)q0_cyc, (const float*)init_dstep,
+      (const float*)state_in, (const long long*)cursor_in, (float*)out,
+      (float*)state_out, (long long*)cursor_out, p);
   if (err != cudaSuccess) {
     cudaGetLastError();   // reported here; not left for the next launch
     return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+// Host entry point, called through ctypes.  Launches the instance of
+// capture kind `kind` as C clusters of `cluster` blocks on `stream` and
+// does not synchronize; returns the launch's error, else
+// cudaGetLastError() (0 on success).
+extern "C" int bds3_track_fused(const void* capture, long long total,
+                                int kind, const void* code,
+                                const void* ck_int, const void* ck_frac,
+                                const void* code61, const void* ck61_int,
+                                const void* ck61_frac, const void* carr_t,
+                                const void* a_base, const void* q0_cyc,
+                                const void* init_dstep, const void* state_in,
+                                const void* cursor_in, void* out,
+                                void* state_out, void* cursor_out,
+                                int cluster, const TrackParams* params,
+                                void* stream) {
+  switch (kind) {
+#define LAUNCH(K)                                                          \
+  case K:                                                                  \
+    return launch<K>(capture, total, code, ck_int, ck_frac, code61,        \
+                     ck61_int, ck61_frac, carr_t, a_base, q0_cyc,          \
+                     init_dstep, state_in, cursor_in, out, state_out,      \
+                     cursor_out, cluster, *params, stream);
+    LAUNCH(CAPTURE_INT8)
+    LAUNCH(CAPTURE_FLOAT32)
+    LAUNCH(CAPTURE_COMPLEX64)
+#undef LAUNCH
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -8,8 +8,13 @@ host module's own code tables, overlays and delay grids and repeat its
 expressions in its order, so without noise a capture rendered on the CPU
 equals the host's sample for sample (tests/test_torch_stream.py).  The
 noise comes from a torch generator seeded with `seed`: with noise a
-capture is another draw of the same distribution, not the host's.  Real
-int8 (REAL8) captures only.
+capture is another draw of the same distribution, not the host's.
+
+Both render the settings' file type: REAL8 as (n,) int8, a component
+adding amp * wave * cos(theta + psi); IQ8 as (n, 2) int8 I/Q pairs with
+the host's IQ convention (io/synth.py:183-191), a component adding
+amp * wave * e^{j(theta + psi)}, noise on I and on Q.  `synthesize_scenario`
+renders REAL8 only; `render_scenario` takes the same convention to IQ8.
 """
 from __future__ import annotations
 
@@ -38,11 +43,30 @@ def _dev64(x, device) -> torch.Tensor:
 
 
 def _quantize(acc: torch.Tensor, noise_std: float, gen) -> torch.Tensor:
+    """(n,) or (n, 2) float64 samples, plus noise on each component, to
+    int8 as the host rounds them (np.round: half to even)."""
     if noise_std > 0:
-        acc += noise_std * torch.randn(acc.shape[0], generator=gen,
+        acc += noise_std * torch.randn(acc.shape, generator=gen,
                                        dtype=torch.float64,
                                        device=acc.device)
     return torch.clamp(torch.round(acc), -128, 127).to(torch.int8)
+
+
+def _add(acc: torch.Tensor, a: torch.Tensor, phase: torch.Tensor) -> None:
+    """acc += a * cos(phase) for REAL8 (acc (n,)), acc += a * e^{j phase}
+    for IQ8 (acc (n, 2), I and Q): the product a * (cos + j sin) is
+    (a cos, a sin) exactly, as the host's complex multiply gives it."""
+    if acc.dim() == 1:
+        acc += a * torch.cos(phase)
+    else:
+        acc[:, 0] += a * torch.cos(phase)
+        acc[:, 1] += a * torch.sin(phase)
+
+
+def _samples(settings: Settings, n: int, device) -> tuple:
+    """(the sample shape of each output row, the empty int8 capture)."""
+    row = (2,) if settings.file_type == FileType.IQ8 else ()
+    return row, torch.empty((n,) + row, dtype=torch.int8, device=device)
 
 
 def render_if(settings: Settings, sats: list[SatParams], n_ms: float,
@@ -50,9 +74,8 @@ def render_if(settings: Settings, sats: list[SatParams], n_ms: float,
               seed: int = 0, start_sample: int = 0,
               chunk: int = 1 << 24) -> torch.Tensor:
     """synthesize_if (io/synth.py) on `device`: the (n,) int8 capture of
-    `sats` from sample `start_sample` on, as a tensor there."""
-    if settings.file_type != FileType.REAL8:
-        raise NotImplementedError("only real int8 captures are rendered")
+    `sats` from sample `start_sample` on, or (n, 2) int8 I/Q pairs for an
+    IQ8 file type, as a tensor there."""
     dev = resolve_device(device)
     fs, L = settings.sampling_freq, settings.code_length
     n = int(round(n_ms * 1e-3 * fs))
@@ -69,12 +92,13 @@ def render_if(settings: Settings, sats: list[SatParams], n_ms: float,
                for sat in sats]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    out = torch.empty(n, dtype=torch.int8, device=dev)
+    row, out = _samples(settings, n, dev)
     for start in range(0, n, chunk):
         stop = min(start + chunk, n)
         t = torch.arange(start_sample + start, start_sample + stop,
                          dtype=torch.float64, device=dev) / fs
-        acc = torch.zeros(stop - start, dtype=torch.float64, device=dev)
+        acc = torch.zeros((stop - start,) + row, dtype=torch.float64,
+                          device=dev)
         for sat, sat_comps in per_sat:
             f_carr = settings.intermediate_freq + sat.doppler_hz
             theta = 2.0 * math.pi * f_carr * t + sat.carrier_phase
@@ -88,7 +112,7 @@ def render_if(settings: Settings, sats: list[SatParams], n_ms: float,
                 w = wave[entry]
                 if ovl is not None:
                     w = w * ovl[torch.remainder(period, len(ovl))]
-                acc += amp * w * torch.cos(theta + psi)
+                _add(acc, amp * w, theta + psi)
         out[start:stop] = _quantize(acc, noise_std, gen)
     return out
 
@@ -99,7 +123,8 @@ def render_scenario(sc: scn.Scenario, device: str | torch.device = "cuda",
     """synthesize_scenario (io/scenario.py) on `device`, B2a (with its
     pilot secondary overlay) or B1C: the same geometry, codes, overlays and
     power split; the delay grid is interpolated as np.interp does on its
-    uniform grid.  Returns the (n,) int8 capture as a tensor there."""
+    uniform grid.  Returns the (n,) int8 capture, or (n, 2) int8 I/Q pairs
+    for an IQ8 file type, as a tensor there."""
     dev = resolve_device(device)
     s = sc.settings
     fs, L, f_rf = s.sampling_freq, s.code_length, s.carr_freq_basis
@@ -144,11 +169,12 @@ def render_scenario(sc: scn.Scenario, device: str | torch.device = "cuda",
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    out = torch.empty(n, dtype=torch.int8, device=dev)
+    row, out = _samples(s, n, dev)
     for start in range(0, n, chunk):
         stop = min(start + chunk, n)
         t = torch.arange(start, stop, dtype=torch.float64, device=dev) / fs
-        acc = torch.zeros(stop - start, dtype=torch.float64, device=dev)
+        acc = torch.zeros((stop - start,) + row, dtype=torch.float64,
+                          device=dev)
         for eph, a0, a1, tau_g, p0, comps in sats:
             # np.interp on the uniform grid t_grid
             i = torch.floor(t / grid_dt).to(torch.int64) \
@@ -164,7 +190,6 @@ def render_scenario(sc: scn.Scenario, device: str | torch.device = "cuda",
             for wave, m, ovl, psi, amp in comps:
                 entry = torch.remainder(
                     torch.floor(chips * m).to(torch.int64), L * m)
-                acc += amp * (wave[entry] * ovl[period]) \
-                    * torch.cos(theta + psi)
+                _add(acc, amp * (wave[entry] * ovl[period]), theta + psi)
         out[start:stop] = _quantize(acc, noise_std, gen)
     return out

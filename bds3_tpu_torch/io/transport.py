@@ -8,6 +8,9 @@ planar quarters.  The unpacks are PyTorch elementwise operations on the
 packed tensor's device (the reference's are XLA elementwise operations,
 not Pallas kernels), so a packed block goes over the wire at half or a
 quarter of its bytes and is widened to int8 where tracking reads it.
+Float32 and complex64 captures go up as they are, and an IQ8 capture as
+its int8 I/Q pairs, widened to complex64 on the device (`IQ8Pairs`,
+`widen_iq8`).
 """
 from __future__ import annotations
 
@@ -73,33 +76,116 @@ def unpack_int2(packed: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat(quarters)[:n]
 
 
+def capture_dtype(dtype) -> np.dtype:
+    """The dtype a capture of `dtype` (numpy's or torch's) is tracked in:
+    int8 and float32 as they are, other real dtypes as float32
+    (bds3_tpu/track/driver.py:333-334), complex ones as complex64."""
+    if isinstance(dtype, torch.dtype):
+        if dtype == torch.int8:
+            return np.dtype(np.int8)
+        return np.dtype(np.complex64 if dtype.is_complex else np.float32)
+    dtype = np.dtype(dtype)
+    if dtype == np.int8:
+        return dtype
+    if dtype.kind == "c":
+        return np.dtype(np.complex64)
+    if dtype.kind in "biuf":
+        return np.dtype(np.float32)
+    raise TypeError(f"a capture of dtype {dtype} holds no samples")
+
+
+def check_packing(packing: str, kind: str = "int8") -> None:
+    """ValueError unless `packing` is one of PACKINGS and applies to a
+    capture of `kind` (its capture_dtype's name, or "IQ8"): "int4" and
+    "int2" re-quantize real int8 samples, so they take int8 captures only.
+    The reference ignores the packing of such blocks
+    (bds3_tpu/track/driver.py:335-337) or truncates them to int8
+    (bds3_tpu/io/transport.py:100)."""
+    if packing not in PACKINGS:
+        raise ValueError(f"unknown transport packing {packing!r}: expected "
+                         f"one of {PACKINGS}")
+    if packing != "none" and kind != "int8":
+        raise ValueError(f"transport packing {packing!r} re-quantizes real "
+                         f"int8 samples, and this capture is {kind}: it is "
+                         "uploaded as it is (transport 'none')")
+
+
+def widen_iq8(pairs: torch.Tensor) -> torch.Tensor:
+    """(n, 2) int8 I/Q pairs to the (n,) complex64 capture I + jQ, on
+    their device (bds3_tpu/receiver.py:87-92 widens them on the host)."""
+    return torch.complex(pairs[:, 0].to(torch.float32),
+                         pairs[:, 1].to(torch.float32))
+
+
+class IQ8Pairs:
+    """An IQ8 capture's (N, 2) int8 I/Q pairs (an `IFDataFile`'s memmap, an
+    array) read as a 1-D complex64 host source: a slice is widened on the
+    host (acquisition's window), while the per-block tracking path and
+    `upload_capture` send `raw` as it is, 2 bytes a sample instead of 8,
+    and widen it on the device (`upload`)."""
+
+    dtype = np.dtype(np.complex64)
+
+    def __init__(self, raw: np.ndarray):
+        if raw.ndim != 2 or raw.shape[1] != 2 or raw.dtype != np.int8:
+            raise ValueError(f"IQ8 pairs are (N, 2) int8, not {raw.shape} "
+                             f"{raw.dtype}")
+        self.raw = raw
+
+    def __len__(self) -> int:
+        return self.raw.shape[0]
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self),)
+
+    def __getitem__(self, key: slice) -> np.ndarray:
+        w = np.asarray(self.raw[key])
+        out = np.empty(w.shape[0], np.complex64)
+        out.real, out.imag = w[:, 0], w[:, 1]
+        return out
+
+
+def read_host(signal, start: int, stop: int) -> np.ndarray:
+    """signal[start:stop] as the contiguous host array `upload` takes: the
+    capture_dtype of a 1-D source, or an IQ8Pairs' raw (n, 2) int8."""
+    if isinstance(signal, IQ8Pairs):
+        return np.ascontiguousarray(signal.raw[start:stop])
+    return np.ascontiguousarray(signal[start:stop],
+                                dtype=capture_dtype(signal.dtype))
+
+
 def upload(host: np.ndarray, packing: str,
            device: torch.device) -> torch.Tensor:
-    """One contiguous int8 host array to (len(host),) int8 on `device`:
-    packed on the host and unpacked there for "int4" and "int2"."""
+    """One contiguous host array (`read_host`'s) to its (len(host),)
+    capture on `device`: int8 packed on the host and unpacked there for
+    "int4" and "int2"; float32 and complex64 as they are; (n, 2) int8
+    IQ8 pairs as they are, widened there to complex64."""
     n = len(host)
+    pairs = host.ndim == 2
+    check_packing(packing, "IQ8" if pairs else str(host.dtype))
     if packing == "int4":
         return unpack_int4(torch.from_numpy(pack_int4(host)).to(device), n)
     if packing == "int2":
         return unpack_int2(torch.from_numpy(pack_int2(host)).to(device), n)
-    if packing != "none":
-        raise ValueError(f"unknown packing {packing!r}")
     # a writeable host copy only where the source is not (a read-only
     # memmap of a capture file)
-    return torch.from_numpy(np.require(host, requirements=["W"])).to(device)
+    t = torch.from_numpy(np.require(host, requirements=["W"])).to(device)
+    return widen_iq8(t) if pairs else t
 
 
 def upload_capture(signal, packing: str = "none",
                    device: str | torch.device = "cuda") -> torch.Tensor:
-    """Upload an int8 capture (ndarray, memmap or StreamingCapture) to
-    `device` as one bulk transfer; returns an int8 tensor there.
+    """Upload a capture (ndarray, memmap, StreamingCapture, IQ8Pairs) to
+    `device` as one bulk transfer; returns its 1-D tensor there: int8,
+    float32 or complex64 (capture_dtype), never truncated to int8 as the
+    reference's is (bds3_tpu/io/transport.py:100).  An (N, 2) int8 array
+    is taken as IQ8 pairs: they go up as int8 and are widened there.
 
-    packing="int4" or "int2": re-quantize on the host, ship a half or a
-    quarter of the bytes, unpack on the device.
+    packing="int4" or "int2" (int8 captures only): re-quantize on the
+    host, ship a half or a quarter of the bytes, unpack on the device.
     """
-    if packing not in PACKINGS:
-        raise ValueError(f"unknown packing {packing!r}")
-    n = len(signal)
-    host = signal[0:n] if not isinstance(signal, np.ndarray) else signal
-    host = np.ascontiguousarray(host, dtype=np.int8)
-    return upload(host, packing, resolve_device(device))
+    if isinstance(signal, np.ndarray) and signal.ndim == 2:
+        signal = IQ8Pairs(signal)
+    return upload(read_host(signal, 0, len(signal)), packing,
+                  resolve_device(device))

@@ -2,11 +2,15 @@
 PVT, on a PyTorch device.
 
 Port of `bds3_tpu/receiver.py`, for B2a and B1C in every track mode on
-real int8 captures, with B1C's band-pass resampled acquisition.
-Acquisition reads its window from the source as given.  A capture that
-fits on the device goes there once (`device_resident`), optionally packed
-(`transport`); a larger one, or a `StreamingCapture` asked to stream, is
-tracked block by block from the host (track/driver.py).
+real (int8, float32) and complex IQ captures, with B1C's band-pass
+resampled acquisition.  An IQ8 capture's int8 I/Q pairs are read as a
+complex64 source (`io.transport.IQ8Pairs`), as the reference widens them
+(receiver.py:87-92), but they cross to the card as pairs and are widened
+there.  Acquisition reads its window from the source as given.  A
+capture that fits on the device goes there once (`device_resident`),
+optionally packed (`transport`, int8 only); a larger one, or a
+`StreamingCapture` asked to stream, is tracked block by block from the
+host (track/driver.py).
 C/N0 and lock health, navigation decoding and PVT run on the host, in the
 port's own copies of the reference's host modules.
 """
@@ -23,7 +27,13 @@ from bds3_tpu_torch.acquire.pcps import AcqResults, acquire, make_acq_config
 from bds3_tpu_torch.acquire.resample import plan_resample
 from bds3_tpu_torch.config import FileType, Settings
 from bds3_tpu_torch.io.ifdata import IFDataFile
-from bds3_tpu_torch.io.transport import PACKINGS, upload_capture
+from bds3_tpu_torch.io.transport import (
+    IQ8Pairs,
+    capture_dtype,
+    check_packing,
+    upload_capture,
+    widen_iq8,
+)
 from bds3_tpu_torch.observe.cn0 import channel_health
 from bds3_tpu_torch.pvt.solver import NavSolutions, post_navigation
 from bds3_tpu_torch.track.driver import (
@@ -53,13 +63,13 @@ class ReceiverResults:
     health: list[dict] = dataclasses.field(default_factory=list)
 
 
-def check_ported(s: Settings) -> None:
-    """NotImplementedError naming what the port does not cover yet in
-    these settings (complex IQ captures), TypeError for another package's
-    Settings, before any file is opened or any device is touched."""
+def check_ported(s: Settings, transport: str = "none") -> None:
+    """Raise before any file is opened or any device is touched: TypeError
+    for another package's Settings, ValueError for a `transport` that is
+    unknown or packs an IQ8 capture (io.transport.check_packing)."""
     require_ported(s)
-    if s.file_type == FileType.IQ8:
-        raise NotImplementedError("complex IQ captures are not ported yet")
+    check_packing(transport, "IQ8" if s.file_type == FileType.IQ8
+                  else "int8")
 
 
 def acquisition_signal_length(s: Settings) -> int:
@@ -81,7 +91,8 @@ def acquisition_signal_length(s: Settings) -> int:
 
 
 def resident_fits(n_bytes: int, device: torch.device) -> bool:
-    """device_resident="auto": whether an n_bytes int8 capture goes to
+    """device_resident="auto": whether a capture that takes n_bytes on the
+    device (1, 4 or 8 bytes a sample: int8, float32, complex64) goes to
     `device` whole.  On a card, when it takes at most 1 - RESIDENT_FREE_SHARE
     of the free memory; on the CPU never (the host source is sliced block
     by block, as the reference does off its chip)."""
@@ -113,35 +124,40 @@ def run_receiver(
     device_resident: bool | str = "auto",
     transport: str = "none",
 ) -> ReceiverResults:
-    """Full cold-start pipeline on a real int8 IF capture, on `device`.
+    """Full cold-start pipeline on an IF capture, on `device`.
 
-    signal: numpy array or memmap, StreamingCapture, tensor or IFDataFile.
+    signal: numpy array or memmap, StreamingCapture, tensor or IFDataFile;
+    1-D real (int8, float32) or complex64 samples, or an IQ8 capture's
+    (N, 2) int8 I/Q pairs (an IQ8 IFDataFile's data), which are tracked as
+    complex64 I + jQ.
     Pass `acq_results` to reuse a previous acquisition (the reference's
     settings.skipAcquisition workflow, postProcessing.m:81-85).
     device_resident (bds3_tpu/receiver.py:96-148): True uploads a host
     capture whole before tracking, False tracks it block by block from the
     host; "auto" uploads it when it fits (resident_fits).  A tensor is
     tracked where it is.  transport: "none", "int4" or "int2", the packing
-    of the upload, whole or per block (io.transport).
-    Tracking runs the path `track` chooses ("auto").  Configurations the
-    port does not cover yet raise NotImplementedError before any work is
-    done (check_ported).
+    of an int8 capture's upload, whole or per block (io.transport).
+    Tracking runs the path `track` chooses ("auto").  What does not apply
+    (a packing of a capture other than int8) raises before any work is
+    done (check_ported, io.transport.check_packing).
     """
-    check_ported(settings)
-    if transport not in PACKINGS:
-        raise ValueError(f"unknown transport {transport!r}: expected one "
-                         f"of {PACKINGS}")
+    check_ported(settings, transport)
     if isinstance(signal, IFDataFile):
-        if signal.file_type == FileType.IQ8:
-            raise NotImplementedError("complex IQ captures are not ported yet")
         signal = signal.data
+    pairs = len(signal.shape) == 2      # an IQ8 capture's I/Q pairs
+    check_packing(transport, "IQ8" if pairs
+                  else str(capture_dtype(signal.dtype)))
     dev = resolve_device(device)
+    if pairs:
+        signal = widen_iq8(signal.to(dev)) \
+            if isinstance(signal, torch.Tensor) else IQ8Pairs(signal)
     if isinstance(signal, torch.Tensor):
         signal = as_capture(signal, dev)
     else:
         check_host_source(signal)
         if device_resident == "auto":
-            device_resident = resident_fits(len(signal), dev)
+            device_resident = resident_fits(
+                len(signal) * capture_dtype(signal.dtype).itemsize, dev)
 
     timings = {}
     t0 = time.time()
@@ -154,6 +170,7 @@ def run_receiver(
     timings["acquire_s"] = time.time() - t0
 
     if device_resident is True and not isinstance(signal, torch.Tensor):
+        # float32 and complex64 go up as they are, IQ8 pairs as int8
         t0 = time.time()
         signal = upload_capture(signal, transport, dev)
         if dev.type == "cuda":

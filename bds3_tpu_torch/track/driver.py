@@ -9,16 +9,21 @@ Port of `bds3_tpu/track/driver.py`, with its two paths:
   sliced, padded or shifted (the reference's int32 block offsets and its
   2^31-sample limit are TPU artifacts);
 * per block (`driver.py:320-366`): a host source (numpy, a memmap, an
-  `io.stream.StreamingCapture`) is read one block at a time, packed if
-  `transport` asks for it, uploaded and unpacked on the device, and the
-  same block function runs on that block with the cursors relative to its
-  start.  Only about two blocks are ever on the device or in host memory,
-  so captures larger than either stream through.
+  `io.stream.StreamingCapture`, an `io.transport.IQ8Pairs`) is read one
+  block at a time, packed if `transport` asks for it, uploaded and
+  unpacked on the device, and the same block function runs on that block
+  with the cursors relative to its start.  Only about two blocks are ever
+  on the device or in host memory, so captures larger than either stream
+  through.
 
 The block schedule is the reference's, verbatim, so the epoch count,
 `absolute_sample` and the derived frequencies match it, and the two paths
 read the same samples.  The outputs are downloaded once, at the end, or
 left on the device (`download=False`, `LazyOutputs`).
+
+A capture is real (int8, float32) or complex64, tracked in the dtype
+`io.transport.capture_dtype` gives it; the config is built for its kind
+(`require_ported`).
 """
 from __future__ import annotations
 
@@ -33,7 +38,12 @@ import torch
 from bds3_tpu_torch.config import Settings, Signal
 from bds3_tpu_torch.convert import consts_to_torch, state_to_torch, tables_to_torch
 from bds3_tpu_torch.io.stream import StreamingCapture
-from bds3_tpu_torch.io.transport import PACKINGS, upload
+from bds3_tpu_torch.io.transport import (
+    capture_dtype,
+    check_packing,
+    read_host,
+    upload,
+)
 from bds3_tpu_torch.signals.b1c import b1c_data_boc11, b1c_pilot_boc11, b1c_pilot_boc61
 from bds3_tpu_torch.signals.b2a import b2a_data_code, b2a_pilot_code
 from bds3_tpu_torch.track import fused, prefix
@@ -46,7 +56,6 @@ from bds3_tpu_torch.track.scan import (
     describe,
     output_names,
     pallas_prefix,
-    reference_supported,
     track_block_bucket,
     track_block_reference,
 )
@@ -226,12 +235,17 @@ BLOCK_FNS = {
 }
 
 
-def choose_correlator(cfg: TrackConfig, correlator: str = "auto") -> str:
-    """The tracking path for `cfg`: "auto" takes the CUDA tracking kernel
-    ("fused"), as the reference takes its fused kernel on its chip
-    (bds3_tpu/track/driver.py:211-222); a config the kernel cannot hold
-    raises, it is not sent elsewhere.  The device then picks kernel or
-    plain version, so the CPU runs the path the card runs."""
+def choose_correlator(cfg: TrackConfig, correlator: str = "auto",
+                      dtype=np.int8) -> str:
+    """The tracking path for `cfg` on a capture tracked in `dtype`: "auto"
+    takes the CUDA tracking kernel ("fused"), as the reference takes its
+    fused kernel on its chip (bds3_tpu/track/driver.py:211-222); a config
+    the kernel cannot hold raises, it is not sent elsewhere.  The device
+    then picks kernel or plain version, so the CPU runs the path the card
+    runs.  "bucket_pallas" takes real int8 captures only, as its kernel
+    does: the reference's mixes complex ones in XLA instead without a word
+    (bds3_tpu/track/scan.py:378), and the port runs no kernel path whose
+    kernel would not launch."""
     if correlator == "auto":
         correlator = "fused"
     if correlator not in BLOCK_FNS:
@@ -240,6 +254,13 @@ def choose_correlator(cfg: TrackConfig, correlator: str = "auto") -> str:
     if correlator == "fused" and not cuda_supported(cfg):
         raise NotImplementedError(
             f"the CUDA tracking kernel does not take {describe(cfg)} yet")
+    if correlator == "bucket_pallas" and (
+            cfg.complex_input or np.dtype(dtype) != np.int8):
+        raise NotImplementedError(
+            f"bucket_pallas's mix+prefix kernel reads real int8 captures "
+            f"only, not {describe(cfg)} in {np.dtype(dtype)} (the "
+            "reference's takes real input only: bds3_tpu/track/scan.py:378);"
+            " use 'fused', 'gather' or 'bucket'")
     return correlator
 
 
@@ -253,52 +274,57 @@ def ran_name(correlator: str, on_card: bool) -> str:
     return "reference" if correlator in ("fused", "gather") else correlator
 
 
-def require_ported(settings: Settings,
+def require_ported(settings: Settings, complex_input: bool = False,
                    epochs_per_block: int = 100) -> TrackConfig:
-    """The real-input TrackConfig, or NotImplementedError naming a
-    configuration the port does not cover yet."""
-    cfg = make_track_config(settings, False, epochs_per_block)
-    if not reference_supported(cfg):
-        raise NotImplementedError(
-            f"tracking for {describe(cfg)} is not ported yet")
-    return cfg
+    """The TrackConfig for a real or complex capture (every signal and
+    track mode is ported); TypeError for another package's Settings."""
+    return make_track_config(settings, complex_input, epochs_per_block)
 
 
-def _check_int8(kind, ndim, ok) -> None:
-    if not ok or ndim != 1:
-        raise NotImplementedError(
-            f"{kind} captures with {ndim} dimensions are not ported yet "
-            "(real int8 only)")
+# the torch dtype of each capture_dtype
+TORCH_DTYPES = {np.dtype(np.int8): torch.int8,
+                np.dtype(np.float32): torch.float32,
+                np.dtype(np.complex64): torch.complex64}
+
+
+def _check_1d(shape) -> None:
+    if len(shape) != 1:
+        raise ValueError(
+            f"a capture is 1-D, not {tuple(shape)}: an IQ8 capture's (N, 2) "
+            "int8 I/Q pairs go to run_receiver(), or convert them as it "
+            "does: io.transport.IQ8Pairs(raw) for a host source, "
+            "io.transport.widen_iq8(pairs) for a tensor")
 
 
 def as_capture(signal, device: str | torch.device) -> torch.Tensor:
-    """A real int8 capture as a 1-D int8 tensor on `device` (not copied if
-    it is one already).  A StreamingCapture is refused: it is read block
-    by block (`track`), or uploaded whole by `io.transport.upload_capture`."""
+    """A capture as the 1-D tensor tracking reads, on `device`: int8,
+    float32 and complex64 as they are (not copied if already there),
+    other dtypes as io.transport.capture_dtype casts them.  A
+    StreamingCapture is refused: it is read block by block (`track`), or
+    uploaded whole by `io.transport.upload_capture`; so are IQ8 pairs."""
     if isinstance(signal, StreamingCapture):
         raise TypeError(
             "a StreamingCapture is not uploaded whole here: pass it to "
             "track() or run_receiver(), which read it block by block, or "
             "upload it with bds3_tpu_torch.io.transport.upload_capture")
-    if isinstance(signal, torch.Tensor):
-        _check_int8(signal.dtype, signal.dim(), signal.dtype == torch.int8)
-    else:
+    if not isinstance(signal, torch.Tensor):
         signal = np.asarray(signal)
-        _check_int8(signal.dtype, signal.ndim, signal.dtype == np.int8)
+    _check_1d(signal.shape)
+    dtype = capture_dtype(signal.dtype)
     dev = resolve_device(device)
     if isinstance(signal, np.ndarray):
         # a writeable, contiguous host copy only where the source is
         # neither (a read-only memmap of a capture file)
-        signal = torch.from_numpy(np.require(signal, requirements=["C", "W"]))
-    return signal.to(dev)
+        signal = torch.from_numpy(np.require(signal.astype(dtype, copy=False),
+                                             requirements=["C", "W"]))
+    return signal.to(dev, TORCH_DTYPES[dtype])
 
 
 def check_host_source(signal) -> None:
-    """Raise unless `signal` is a real int8 host source the per-block path
-    reads: a 1-D numpy array or memmap, or a StreamingCapture."""
-    dtype = np.dtype(getattr(signal, "dtype", np.float32))
-    ndim = len(getattr(signal, "shape", (0, 0)))
-    _check_int8(dtype, ndim, dtype == np.int8)
+    """Raise unless `signal` is a host source the per-block path reads: a
+    1-D numpy array or memmap of samples, a StreamingCapture, IQ8Pairs."""
+    _check_1d(getattr(signal, "shape", ()))
+    capture_dtype(getattr(signal, "dtype", None))
 
 
 def setup_tracking(capture, settings: Settings, inits: list[ChannelInit],
@@ -307,7 +333,8 @@ def setup_tracking(capture, settings: Settings, inits: list[ChannelInit],
     """Host half of `track`: config, tables, initial state and schedule.
     capture: the capture tensor, whose device the tensors go to, or a host
     source (anything with a length) with the `device` to use."""
-    cfg = require_ported(settings, epochs_per_block)
+    cfg = require_ported(settings, capture_dtype(capture.dtype).kind == "c",
+                         epochs_per_block)
     dev = capture.device if isinstance(capture, torch.Tensor) \
         else resolve_device(device)
     consts = channel_consts(cfg, inits, settings)
@@ -377,11 +404,11 @@ def stream_blocks(setup: TrackSetup, signal, block_fn, transport: str = "none",
                        setup.state.statef)
     rows, pending = [], None
     for s_cur in sched.starts:
-        host = np.ascontiguousarray(signal[s_cur: s_cur + sched.block_len],
-                                    dtype=np.int8)
+        host = read_host(signal, s_cur, s_cur + sched.block_len)
         if len(host) < sched.block_len:
-            host = np.concatenate(
-                [host, np.zeros(sched.block_len - len(host), np.int8)])
+            pad = np.zeros((sched.block_len - len(host),) + host.shape[1:],
+                           host.dtype)
+            host = np.concatenate([host, pad])
         block = _upload_block(host, transport, dev, side)
         state, r = block_fn(cfg, block, setup.tables, setup.consts, state)
         rows.append(r)
@@ -413,31 +440,38 @@ def track(
 ) -> TrackResults:
     """Track all channels for n_epochs integration periods on `device`.
 
-    signal: the whole real int8 capture.  A tensor is tracked where it is
-    moved to (not copied if it is on `device` already).  A host source (a
-    numpy array, a memmap, an io.stream.StreamingCapture) is read, uploaded
-    and tracked one block at a time (stream_blocks).  correlator: "auto"
-    (choose_correlator), or one of the reference's paths: "fused" and
+    signal: the whole capture, 1-D: int8 or float32 real, or complex64
+    (other dtypes are cast as io.transport.capture_dtype says).  A tensor
+    is tracked where it is moved to (not copied if it is on `device`
+    already).  A host source (a numpy array, a memmap, an
+    io.stream.StreamingCapture, an io.transport.IQ8Pairs) is read,
+    uploaded and tracked one block at a time (stream_blocks).
+    correlator: "auto" (choose_correlator), or one of the reference's
+    paths: "fused" and
     "gather" (the CUDA tracking kernel and its plain version, the direct
     sum), "bucket" and "bucket_pallas" (the prefix-sum correlator with its
     plain prefixes or with the mix+prefix kernel).  On a CUDA device the
     kernel paths launch their kernels; on the CPU their plain versions run
-    instead.  Configurations the port does not cover raise
-    NotImplementedError before any device work: B2a and B1C in every
-    track mode, on real int8 input, are covered.
+    instead.  B2a and B1C in every track mode are covered; what does not
+    apply (bucket_pallas on a capture other than int8, a packing of one)
+    raises before any device work.
 
     The reference's streaming options (driver.py:166-203) apply to a host
     source: sync_each_block and deadline_s as in stream_blocks, and
-    transport "int4" or "int2" packs each block on the host and unpacks it
-    on the device (io.transport).  download=False leaves the outputs on
-    the device as a LazyOutputs, without the derived fields.
+    transport "int4" or "int2" packs each block of an int8 capture on the
+    host and unpacks it on the device (io.transport).  download=False
+    leaves the outputs on the device as a LazyOutputs, without the
+    derived fields.
     """
     t0 = time.time()
-    cfg = require_ported(settings, epochs_per_block)
-    correlator = choose_correlator(cfg, correlator)
-    if transport not in PACKINGS:
-        raise ValueError(f"unknown transport {transport!r}: expected one "
-                         f"of {PACKINGS}")
+    if isinstance(signal, torch.Tensor):
+        _check_1d(signal.shape)
+    else:
+        check_host_source(signal)
+    dtype = capture_dtype(signal.dtype)
+    cfg = require_ported(settings, dtype.kind == "c", epochs_per_block)
+    correlator = choose_correlator(cfg, correlator, dtype)
+    check_packing(transport, str(dtype))
     if n_epochs is None:
         n_epochs = settings.int_epochs
     block_fn = BLOCK_FNS[correlator]
@@ -447,7 +481,6 @@ def track(
                                epochs_per_block)
         rows = run_blocks(setup, capture, block_fn)
     else:
-        check_host_source(signal)
         setup = setup_tracking(signal, settings, inits, n_epochs,
                                epochs_per_block, device)
         rows = stream_blocks(setup, signal, block_fn, transport,

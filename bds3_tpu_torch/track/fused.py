@@ -6,9 +6,10 @@ channels in one launch of `csrc/track_fused.cu` (design notes there): C
 thread-block clusters of S blocks, one cluster per channel, each block
 summing a contiguous slice of every epoch (`rank_slice`).  S is chosen
 once per (config, channel count) from the card's own occupancy answer
-(`cluster_size`).  On CPU tensors it runs the plain version,
-`scan.track_block_reference`; on CUDA tensors it launches the kernel or
-raises.  It never falls back.
+(`cluster_size`).  The capture is real int8, real float32 or complex64
+(`CAPTURE_KINDS`), each read by its own instance of the kernel.  On CPU
+tensors it runs the plain version, `scan.track_block_reference`; on CUDA
+tensors it launches the kernel or raises.  It never falls back.
 
 The host-side geometry the kernel mirrors lives here too, in plain
 Python, so the CPU tests reach it: the slices (`rank_slice`), the choice
@@ -30,9 +31,9 @@ from bds3_tpu_torch.track.scan import (
     STATE_FIELDS,
     TrackState,
     TrackTables,
+    check_capture,
     describe,
     loop_constants,
-    reference_supported,
     slot_names,
     track_block_reference,
 )
@@ -43,6 +44,9 @@ KERNEL_NAME = "track_fused_cuda"
 SOURCE = "bds3_tpu_torch/csrc/track_fused.cu"
 REPLACES = "bds3_tpu/track/pallas_fused.py:1153"   # the TPU kernel
 SMEM_LIMIT = 227 * 1024   # dynamic shared memory one H100 block may use
+# the capture dtypes the kernel reads, by its instance's code
+# (track_fused.cu CAPTURE_*); complex64 is read as interleaved float pairs
+CAPTURE_KINDS = {torch.int8: 0, torch.float32: 1, torch.complex64: 2}
 THREADS = 512             # threads of one block (track_fused.cu THREADS)
 N_ACC = 18                # correlator sums (track_fused.cu N_ACC)
 # the block's bookkeeping (track_fused.cu HEAD_BYTES): warp partials and
@@ -103,10 +107,12 @@ def _smem_bytes(cfg: TrackConfig) -> int:
 
 def cuda_supported(cfg: TrackConfig) -> bool:
     """Whether the CUDA kernel takes this config (the port's counterpart of
-    `fused_supported`): B2a and B1C in any track mode, real input, with the
-    code tables within one block's shared memory (B1C wideband at the
-    99.375 Msps preset takes about 171,000 of the 232,448 bytes)."""
-    return reference_supported(cfg) and _smem_bytes(cfg) <= SMEM_LIMIT
+    `fused_supported`): B2a and B1C in any track mode, on a capture of any
+    of CAPTURE_KINDS (int8 or float32 real, complex64), with the code
+    tables within one block's shared memory (B1C wideband at the 99.375
+    Msps preset takes about 171,000 of the 232,448 bytes; the capture is
+    read from global memory, so its dtype does not count)."""
+    return _smem_bytes(cfg) <= SMEM_LIMIT
 
 
 def rank_slice(n: int, cluster: int, rank: int) -> tuple[int, int]:
@@ -198,7 +204,7 @@ def _entry():
 
     fn = library().bds3_track_fused
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
                    + [ctypes.c_void_p] * 15
                    + [ctypes.c_int, ctypes.POINTER(_Params),
                       ctypes.c_void_p])
@@ -206,34 +212,36 @@ def _entry():
 
 
 @functools.lru_cache(maxsize=None)
-def cluster_occupancy(cfg: TrackConfig, n_channels: int,
-                      device_index: int) -> dict:
+def cluster_occupancy(cfg: TrackConfig, n_channels: int, device_index: int,
+                      dtype: torch.dtype = torch.int8) -> dict:
     """{S: clusters of S blocks the card holds at once} for this config's
-    shared memory and block size (cudaOccupancyMaxActiveClusters), for each
-    of CLUSTER_SIZES; negative where the card refuses the size."""
+    shared memory and block size and the kernel's instance for a `dtype`
+    capture (cudaOccupancyMaxActiveClusters), for each of CLUSTER_SIZES;
+    negative where the card refuses the size."""
     from bds3_tpu_torch._build import library
 
     fn = library().bds3_track_cluster_occupancy
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     n = len(CLUSTER_SIZES)
     sizes = (ctypes.c_int * n)(*CLUSTER_SIZES)
     counts = (ctypes.c_int * n)()
     with torch.cuda.device(device_index):
-        err = fn(ctypes.byref(_params(cfg, n_channels)), n, sizes, counts)
+        err = fn(ctypes.byref(_params(cfg, n_channels)), CAPTURE_KINDS[dtype],
+                 n, sizes, counts)
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME}: setting the kernel's attributes "
                            f"failed: CUDA error {err}")
     return dict(zip(CLUSTER_SIZES, counts))
 
 
-def cluster_size(cfg: TrackConfig, n_channels: int,
-                 device_index: int) -> int:
-    """The cluster size the kernel runs this config with (choose_cluster
-    over the card's cluster_occupancy)."""
-    return choose_cluster(cluster_occupancy(cfg, n_channels, device_index),
-                          n_channels)
+def cluster_size(cfg: TrackConfig, n_channels: int, device_index: int,
+                 dtype: torch.dtype = torch.int8) -> int:
+    """The cluster size the kernel runs this config with on a `dtype`
+    capture (choose_cluster over the card's cluster_occupancy)."""
+    return choose_cluster(
+        cluster_occupancy(cfg, n_channels, device_index, dtype), n_channels)
 
 
 def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
@@ -242,9 +250,11 @@ def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
                       ) -> tuple[TrackState, torch.Tensor]:
     """W = cfg.epochs_per_block epochs for all channels in one launch.
 
-    capture: (N,) int8, the whole capture, on the device the kernel runs
-    on.  consts: ChannelConsts of tensors.  Returns (new TrackState, rows
-    (W, C, len(slot_names(cfg))) float32), like track_block_reference.
+    capture: (N,), the whole capture, on the device the kernel runs on:
+    int8 or float32 real, or complex64 for a config built with
+    complex_input (CAPTURE_KINDS).  consts: ChannelConsts of tensors.
+    Returns (new TrackState, rows (W, C, len(slot_names(cfg))) float32),
+    like track_block_reference.
     The launch is on the current stream and is not synchronized.
     _cluster: blocks per channel; None takes cluster_size.  Only for
     checks and A/B timings of the geometry; a size the card refuses
@@ -258,10 +268,14 @@ def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
         return track_block_reference(cfg, capture, tables, consts, state)
     if dev.type != "cuda":
         raise ValueError(f"no tracking kernel for device {dev}")
+    check_capture(cfg, capture)
 
     C = state.cursor.shape[0]
     taps = 2 if cfg.use_pilot else 1
-    check_tensor("capture", capture, torch.int8, (capture.shape[0],), dev)
+    if capture.dtype not in CAPTURE_KINDS:
+        raise TypeError(f"capture has dtype {capture.dtype}, expected one "
+                        f"of {list(CAPTURE_KINDS)}")
+    check_tensor("capture", capture, capture.dtype, (capture.shape[0],), dev)
     check_tensor("tables.code", tables.code, torch.int8,
                  (C, taps, _table_len(cfg, cfg.m_data)), dev)
     check_tensor("tables.ck_int", tables.ck_int, torch.int32,
@@ -288,7 +302,7 @@ def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
 
     params = _params(cfg, C)
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    cluster = _cluster or cluster_size(cfg, C, index)
+    cluster = _cluster or cluster_size(cfg, C, index, capture.dtype)
     rows = torch.empty((cfg.epochs_per_block, C, params.n_slots),
                        dtype=torch.float32, device=dev)
     statef = torch.empty_like(state.statef)
@@ -296,7 +310,8 @@ def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
     launch = _entry()
     with torch.cuda.device(dev):
         err = launch(
-            capture.data_ptr(), capture.shape[0], tables.code.data_ptr(),
+            capture.data_ptr(), capture.shape[0],
+            CAPTURE_KINDS[capture.dtype], tables.code.data_ptr(),
             tables.ck_int.data_ptr(), tables.ck_frac.data_ptr(), *wb,
             consts.carr_t.data_ptr(), consts.a_base.data_ptr(),
             consts.q0_cyc.data_ptr(), consts.init_dstep.data_ptr(),

@@ -25,6 +25,8 @@ the phase remainders (`scan.py:298-320`).  B1C wideband adds a third tap,
 the BOC(6,1) pilot at 12 table entries per chip, with its own coarse
 code-phase table and, in the bucket path, its own chip boundaries.
 
+The capture is real (int8 or float32) or complex64 (`_mix`); the bucket
+path's `pallas_prefix` takes real int8 only, as its kernel does.
 Samples are read at `cursor + j` straight from the capture: the cursor is
 an absolute int64 sample index, so neither the reference's per-block
 shift nor its pre-gathered, 128-aligned windows (which exist for the
@@ -104,13 +106,6 @@ def slot_names(cfg: TrackConfig) -> list[str]:
     return output_names(cfg) + [f"st_{f}" for f in STATE_FIELDS]
 
 
-def reference_supported(cfg: TrackConfig) -> bool:
-    """Configs this module implements: B2a and B1C in every track mode
-    (WIDEBAND is data+pilot on B2a, as in the reference, and the QMBOC
-    composite pilot on B1C), on real input."""
-    return not cfg.complex_input
-
-
 def describe(cfg: TrackConfig) -> str:
     return (f"{cfg.signal.name} {cfg.mode.name} "
             f"{'complex' if cfg.complex_input else 'real'} input")
@@ -181,10 +176,12 @@ def _eml(ie, qe, il, ql):
     return (e - l) / (e + l)
 
 
-def _check_supported(cfg: TrackConfig) -> None:
-    if not reference_supported(cfg):
-        raise NotImplementedError(
-            f"tracking for {describe(cfg)} is not ported yet")
+def check_capture(cfg: TrackConfig, capture: torch.Tensor) -> None:
+    """Raise unless the capture's kind is the one `cfg` was built for:
+    complex64 for complex input, else real (int8, float32)."""
+    if capture.is_complex() != cfg.complex_input:
+        raise TypeError(f"a {capture.dtype} capture for a config built for "
+                        f"{describe(cfg)}")
 
 
 class _Bank(NamedTuple):
@@ -243,17 +240,24 @@ def _sample_grid(cfg: TrackConfig, consts) -> _SampleGrid:
 def _mix(k: dict, capture, grid: _SampleGrid, a_base, cursor, blksize,
          rem_cyc, d_cyc):
     """The epoch's samples [cursor, cursor + blksize) times the local
-    carrier e^{-j theta} (scan.py:140-152): (i_bb, q_bb), each (C, n)."""
+    carrier e^{-j theta} (scan.py:140-152): (i_bb, q_bb), each (C, n).
+    A real sample x (int8 or float32) gives (x c, -(x s)); a complex one
+    xr + j xi gives (xr c + xi s, xi c - xr s), each product and sum its
+    own float32 operation, in that order (scan.py:145-148)."""
     total = capture.shape[0]
     g = cursor[:, None] + grid.j[None, :]
     valid = (grid.j[None, :] < blksize[:, None]) & (g >= 0) & (g < total)
     x = torch.where(valid, capture[g.clamp(0, total - 1)], 0)
-    x = x.to(torch.float32)
     cyc = torch.remainder(grid.carr_tk + rem_cyc[:, None]
                           + grid.r_f * a_base[:, None]
                           + grid.j_f * d_cyc[:, None], 1.0)
     ang = k["two_pi"] * cyc
-    return x * torch.cos(ang), -(x * torch.sin(ang))
+    c, s = torch.cos(ang), torch.sin(ang)
+    if x.is_complex():
+        xr, xi = x.real, x.imag
+        return xr * c + xi * s, xi * c - xr * s
+    x = x.to(torch.float32)
+    return x * c, -(x * s)
 
 
 def _wideband_errors(cfg: TrackConfig, k: dict, out: dict, code_d, carr_d):
@@ -362,11 +366,12 @@ def track_block_reference(cfg: TrackConfig, capture: torch.Tensor,
                           ) -> tuple[TrackState, torch.Tensor]:
     """Run cfg.epochs_per_block epochs for all channels, direct sums.
 
-    capture: (N,) int8, the whole capture.  consts: ChannelConsts of
+    capture: (N,), the whole capture: int8 or float32 real, or complex64
+    for a config built with complex_input.  consts: ChannelConsts of
     tensors (carr_t (C, k_max), a_base/q0_cyc/init_dstep (C,) float32).
     Returns (new TrackState, rows (W, C, len(slot_names(cfg))) float32).
     """
-    _check_supported(cfg)
+    check_capture(cfg, capture)
     k = loop_constants(cfg)
     grid = _sample_grid(cfg, consts)
     # per bank: (bank, coarse int (n,) int64, coarse frac (n,), r_f * sm)
@@ -518,7 +523,7 @@ def track_block_bucket(cfg: TrackConfig, capture: torch.Tensor,
     correlator (scan.py:170-196); arguments and result as
     track_block_reference.  B1C wideband's BOC(6,1) bank takes the same
     prefixes on its own boundary grid at m = 12."""
-    _check_supported(cfg)
+    check_capture(cfg, capture)
     k = loop_constants(cfg)
     n = cfg.n_max
     prefix = prefix_fn(cfg, capture, consts)

@@ -18,13 +18,22 @@ port's main path through its public entry points:
              (a) 10 Msps, 2 satellites, 30 epochs; (b) 99.375 Msps,
              12 channels, 20 epochs.  blksize and cursors must be equal,
              correlators and discriminators within 1e-3 of |a|.mean()+1.
+             (c) K1's float32 and complex64 instances, one 20-epoch block
+             of B2a 12 channels and of the B1C preset at 99.375 Msps
+             (complex on an IQ8 capture rendered on the card); K1 on
+             capture.float() and on capture + 0j must equal K1 on the int8
+             capture bit for bit; B2a block times of the three instances.
              Every K1 check here and below runs K1 at 1 and 2 blocks per
              channel and at the chosen cluster size against one plain
              block (K1_CLUSTERS).
   3. receiver  run_receiver on the synthesized 20 Msps, 11.5 s,
              5-satellite scenario (seeds 3 and 1): 5 channels, the kernel
-             launched, >= 3 fixes, median 3D error < 1 m; then the kernel
-             against its plain version on one block at these shapes.
+             launched, >= 3 fixes, median 3D error < 1 m; the float32
+             cast of the capture must track exactly as the int8 one; then
+             the kernel against its plain version on one block at these
+             shapes.  The same scenario rendered on the card as IQ8 and
+             handed over as int8 pairs (receiver_iq8_e2e): 5 channels, K1's
+             complex instance launched, >= 3 fixes, median < 1 m.
   4. full-rate  99.375 Msps, 2.2 s, 4 satellites: acquisition over PRNs
              1-63 must detect exactly those 4; 12 channels tracked for
              2000 epochs must all lock; kernel times at one block per
@@ -33,6 +42,9 @@ port's main path through its public entry points:
              Then the same 2000 epochs through the prefix-sum path
              (track(correlator="bucket_pallas"), the mix+prefix kernel):
              12/12 locked, real-time factor beside the tracking kernel's.
+             Then the same satellites as an IQ8 capture rendered on the
+             card (track_iq8_99msps_12ch): 12/12 locked through K1's
+             complex instance, real-time factor beside the int8 run's.
   5. prefix  (run last) mix_prefix (csrc/mix_prefix.cu) against
              mix_prefix_reference
              and a float64 numpy oracle at B1C (10 channels) and B2a
@@ -113,6 +125,7 @@ rendered on the card.  Nothing here imports JAX or the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import multiprocessing as mp
 import os
@@ -301,14 +314,15 @@ def nvidia_smi() -> str:
 K1_CLUSTERS = (1, 2, None)
 
 
-def k1_cluster(setup) -> int:
-    """The cluster size K1 runs `setup` with (fused.cluster_size)."""
+def k1_cluster(setup, dtype=None) -> int:
+    """The cluster size K1 runs `setup` with on a `dtype` capture (int8
+    where None; fused.cluster_size)."""
     import torch
 
     from bds3_tpu_torch.track.fused import cluster_size
 
     return cluster_size(setup.cfg, int(setup.state.cursor.shape[0]),
-                        torch.cuda.current_device())
+                        torch.cuda.current_device(), dtype or torch.int8)
 
 
 def _agreement(cfg, label, st_k, rows_k, st_r, rows_r, tol) -> dict:
@@ -361,7 +375,7 @@ def compare_block(cfg, capture, setup, label: str, kernel: str = "fused",
     st_r, rows_r = plain(*args)
     fns = {"": BLOCK_FNS[kernel]}
     if kernel == "fused":
-        fns = {str(S or f"auto_{k1_cluster(setup)}"):
+        fns = {str(S or f"auto_{k1_cluster(setup, capture.dtype)}"):
                functools.partial(BLOCK_FNS[kernel], _cluster=S)
                for S in K1_CLUSTERS}
     res = {}
@@ -407,7 +421,7 @@ def time_k1_clusters(setup, capture, reps: int) -> dict:
 
     from bds3_tpu_torch.track.fused import fused_track_block
 
-    S = k1_cluster(setup)
+    S = k1_cluster(setup, capture.dtype)
     fns = {1: functools.partial(fused_track_block, _cluster=1),
            S: functools.partial(fused_track_block, _cluster=S)}
     turns = {1: [], S: []}
@@ -434,19 +448,23 @@ def roofline_ms(ops: float, nbytes: float) -> tuple[float, str]:
                                        else "bytes")
 
 
-def track_fused_bound(cfg, blksize: np.ndarray, span: int) -> dict:
+def track_fused_bound(cfg, blksize: np.ndarray, span: int,
+                      sample_bytes: int = 1) -> dict:
     """K1's bound for one launch whose epochs had these lengths
-    (blksize (W, C)) and whose channels read `span` capture bytes.
+    (blksize (W, C)) and whose channels read `span` capture samples of
+    `sample_bytes` each (1 int8, 4 float32, 8 complex64).
     Operations per sample: the carrier (2 multiplies and 3 adds for the
     phase, its mod, the angle multiply, one sine and one cosine, the two
-    mixed products: 10); per bank of taps that share a chip grid (one, or
-    two for B1C wideband) two multiplies for the sample's ramp terms and,
-    for each of E/P/L, 3 adds and a ceil for the chip index (14); per tap
-    six multiply-adds (12).  Bytes: the capture span, the chip tables,
-    the rows written."""
+    mixed products: 10; a complex sample's mix takes 4 products and 2
+    adds: 4 more); per bank of taps that share a chip grid (one, or two
+    for B1C wideband) two multiplies for the sample's ramp terms and, for
+    each of E/P/L, 3 adds and a ceil for the chip index (14); per tap six
+    multiply-adds (12).  Bytes: the capture span, the chip tables, the
+    rows written."""
     taps = 2 if cfg.use_pilot else 1
     banks = 2 if cfg.wideband else 1
-    per_sample = 10 + 14 * banks + 12 * (taps + (1 if cfg.wideband else 0))
+    per_sample = 10 + 14 * banks + 12 * (taps + (1 if cfg.wideband else 0)) \
+        + (4 if cfg.complex_input else 0)
     samples = float(blksize.sum())
     n_ch = blksize.shape[1]
     tables = n_ch * (taps * (cfg.code_length * cfg.m_data + 32)
@@ -455,9 +473,26 @@ def track_fused_bound(cfg, blksize: np.ndarray, span: int) -> dict:
     from bds3_tpu_torch.track.scan import slot_names
 
     rows = blksize.size * 4 * len(slot_names(cfg))
-    ms, by = roofline_ms(samples * per_sample, span + tables + rows)
+    ms, by = roofline_ms(samples * per_sample,
+                         span * sample_bytes + tables + rows)
     return {"bound_ms": ms, "bound_by": by, "ops_per_sample": per_sample,
             "samples": samples}
+
+
+def k1_bound(setup, capture) -> dict:
+    """K1's bound (track_fused_bound) for one block of `setup` on
+    `capture`, from this run's epoch lengths and span (one extra launch,
+    outside any counted run)."""
+    from bds3_tpu_torch.track.fused import fused_track_block
+    from bds3_tpu_torch.track.scan import unpack_rows
+
+    _, rows = fused_track_block(setup.cfg, capture, setup.tables,
+                                setup.consts, setup.state)
+    blk = unpack_rows(setup.cfg, rows)["blksize"].cpu().numpy()
+    cur = setup.state.cursor.cpu().numpy()
+    return track_fused_bound(setup.cfg, blk,
+                             int((cur + blk.sum(axis=0)).max() - cur.min()),
+                             capture.element_size())
 
 
 def phase_build() -> float:
@@ -554,8 +589,7 @@ def phase_kernel_b1c(caps: Captures) -> dict:
     import torch
 
     from bds3_tpu_torch.track.driver import as_capture, setup_tracking
-    from bds3_tpu_torch.track.fused import fused_track_block
-    from bds3_tpu_torch.track.scan import track_block_reference, unpack_rows
+    from bds3_tpu_torch.track.scan import track_block_reference
 
     capture = as_capture(caps.get("b1c_full"), torch.device("cuda"))
     out = {"phase": "kernel_vs_plain_b1c_99msps"}
@@ -567,19 +601,177 @@ def phase_kernel_b1c(caps: Captures) -> dict:
                                20, 20)
         res = compare_block(setup.cfg, capture, setup, f"B1C {label}")
         if label in ("nb", "wb_composite"):
-            _, rows = fused_track_block(setup.cfg, capture, setup.tables,
-                                        setup.consts, setup.state)
-            blk = unpack_rows(setup.cfg, rows)["blksize"].cpu().numpy()
-            cur = setup.state.cursor.cpu().numpy()
-            span = int((cur + blk.sum(axis=0)).max() - cur.min())
             res.update(
                 **time_k1_clusters(setup, capture, reps=5),
                 plain_block_ms=time_block(track_block_reference, setup,
                                           capture, reps=2),
-                **track_fused_bound(setup.cfg, blk, span))
+                **k1_bound(setup, capture))
             res["bound_share"] = res["bound_ms"] / res["kernel_block_ms"]
         out[label] = {**res, "seconds": time.perf_counter() - t0}
     emit(out)
+    return out
+
+
+def iq8(s):
+    """`s` for an IQ8 capture (interleaved int8 I/Q, tracked as complex)."""
+    from bds3_tpu_torch.config import FileType
+
+    return dataclasses.replace(s, file_type=FileType.IQ8)
+
+
+# K1's instances, by the capture dtype each reads
+K1_KINDS = ("int8", "float32", "complex64")
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def phase_kernel_iq() -> dict:
+    """K1's float32 and complex64 instances against the plain version on
+    the card: one 20-epoch block from the same state, B2a 12 channels and
+    the B1C preset (wideband composite, 10 channels) at 99.375 Msps, at
+    each of K1_CLUSTERS (blksize and cursors exact, correlators within
+    TOL): complex64 on an IQ8 capture of FULL_SATS rendered on the card
+    and widened there, float32 on a real capture's cast.  Then the
+    identities, bit for bit: K1 on capture.float() and on capture + 0j
+    equals K1 on the int8 capture.  At B2a, one block's time through each
+    instance at its chosen cluster size in turns (int8, float32,
+    complex64, complex64, float32, int8), the plain version's, and each
+    bound."""
+    import torch
+
+    from bds3_tpu_torch.io.render import render_if
+    from bds3_tpu_torch.io.transport import widen_iq8
+    from bds3_tpu_torch.track.driver import setup_tracking
+    from bds3_tpu_torch.track.fused import fused_track_block
+    from bds3_tpu_torch.track.scan import track_block_reference
+
+    dev = torch.device("cuda")
+    out = {"phase": "kernel_vs_plain_iq"}
+    for label, s, n_ch in (("b2a_12ch", full_settings(), 12),
+                           ("b1c_wb_preset_10ch", b1c_preset_settings(), 10)):
+        t0 = time.perf_counter()
+        n_ms = 25 * s.int_time * 1e3
+        sats = sat_params(FULL_SATS)
+        real = render_if(s, sats, n_ms, dev, noise_std=2.0, seed=11)
+        caps = {"int8": real, "float32": real.float(),
+                "complex64": widen_iq8(render_if(iq8(s), sats, n_ms, dev,
+                                                 noise_std=2.0, seed=11))}
+        inits = make_inits(s, FULL_SATS, n_ch)
+        setups = {k: setup_tracking(c, s, inits, 20, 20)
+                  for k, c in caps.items()}
+        res = {k: compare_block(setups[k].cfg, caps[k], setups[k],
+                                f"{label} {k}") for k in K1_KINDS[1:]}
+        st8, rows8 = fused_track_block(setups["int8"].cfg, real,
+                                       setups["int8"].tables,
+                                       setups["int8"].consts,
+                                       setups["int8"].state)
+        for k, same in (("float32", caps["float32"]),
+                        ("complex64", real.to(torch.complex64))):
+            setup = setup_tracking(same, s, inits, 20, 20)
+            st, rows = fused_track_block(setup.cfg, same, setup.tables,
+                                         setup.consts, setup.state)
+            torch.cuda.synchronize()
+            if not (_bits_equal(rows, rows8) and _bits_equal(st.statef,
+                                                             st8.statef)
+                    and torch.equal(st.cursor, st8.cursor)):
+                raise AssertionError(f"{label}: K1 {k} on the int8 "
+                                     "capture's values differs from K1 int8")
+            res[k]["equals_int8_bit_for_bit"] = True
+        if label == "b2a_12ch":
+            turns = {k: [] for k in K1_KINDS}
+            for k in K1_KINDS + K1_KINDS[::-1]:
+                turns[k].append(time_block(fused_track_block, setups[k],
+                                           caps[k], reps=10))
+            for k in K1_KINDS:
+                res.setdefault(k, {}).update(
+                    ms=float(np.mean(turns[k])), ms_turns=turns[k],
+                    cluster=k1_cluster(setups[k], caps[k].dtype),
+                    plain_ms=time_block(track_block_reference, setups[k],
+                                        caps[k], reps=2),
+                    **k1_bound(setups[k], caps[k]))
+                res[k]["bound_share"] = res[k]["bound_ms"] / res[k]["ms"]
+        out[label] = {**res, "seconds": time.perf_counter() - t0}
+        del caps, setups, real
+    emit(out)
+    return out
+
+
+def phase_track_iq8(int8_run: dict) -> dict:
+    """The 2.2 s B2a capture of FULL_SATS at 99.375 Msps as IQ8, rendered
+    on the card as int8 pairs and widened there to complex64, 12 channels,
+    2000 epochs through track() "auto" (K1's complex instance), cold then
+    warm with the launch counts set to 0 just before the warm run: 12/12
+    locked; the real-time factor beside the int8 capture's
+    (track_99msps_12ch), and the bytes the card holds."""
+    import torch
+
+    from bds3_tpu_torch.io.render import render_if
+    from bds3_tpu_torch.io.transport import widen_iq8
+    from bds3_tpu_torch.track import fused
+
+    s = iq8(full_settings())
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pairs = render_if(s, sat_params(FULL_SATS), FULL_MS, dev, noise_std=2.0,
+                      seed=11)
+    capture = widen_iq8(pairs)
+    pairs_bytes = pairs.numel() * pairs.element_size()
+    del pairs
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    n_ep = 2000
+    trk, cold, warm, launches = _timed_track(
+        capture, s, make_inits(s, FULL_SATS, 12), n_ep)
+    if trk.correlator != fused.KERNEL_NAME or launches["track_fused"] <= 0 \
+            or capture.dtype != torch.complex64:
+        raise AssertionError(f"IQ8 track ran {trk.correlator!r} on a "
+                             f"{capture.dtype} capture, launches {launches}")
+    locked = lock_count(trk, 500)
+    if locked != 12:
+        raise AssertionError(f"IQ8: {locked}/12 channels locked")
+    out = {"phase": "track_iq8_99msps_12ch", "epochs": n_ep, "channels": 12,
+           "locked": locked, "launches": launches, "cold_s": cold,
+           "warm_s": warm, "ms_per_epoch": warm / n_ep * 1e3,
+           "realtime_factor": n_ep * s.int_time / warm,
+           "int8_realtime_factor": int8_run["realtime_factor"],
+           "render_on_card_s": render_s, "samples": int(capture.shape[0]),
+           "capture_bytes": capture.numel() * capture.element_size(),
+           "pairs_bytes": pairs_bytes,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev)}
+    del capture
+    emit(out)
+    return out
+
+
+def phase_receiver_iq8() -> dict:
+    """run_receiver on the receiver_e2e scenario (20 Msps, 11.5 s, 5
+    satellites, seeds 3 and 1) rendered on the card as IQ8 (int8 pairs,
+    render_scenario with synth.py's IQ convention), handed over as the
+    pairs tensor, which the receiver widens there: 5 channels, K1 launched
+    on the complex capture, >= 3 fixes, median 3D error < 1 m."""
+    import torch
+
+    from bds3_tpu_torch.io.render import render_scenario
+    from bds3_tpu_torch.io.scenario import make_scenario
+
+    s = iq8(e2e_settings())
+    t0 = time.perf_counter()
+    pairs = render_scenario(make_scenario(s, RX_TRUTH, n_sats=5, seed=3),
+                            torch.device("cuda"), noise_std=2.0,
+                            amplitude=0.7, seed=1)
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    _, out = drive_receiver("receiver_iq8_e2e", pairs, s, 250, 3, 1.0,
+                            synth_on_card_s=synth_s,
+                            samples=int(pairs.shape[0]))
+    del pairs
     return out
 
 
@@ -653,9 +845,31 @@ def phase_receiver(caps: Captures) -> dict:
 
     from bds3_tpu_torch.track.driver import as_capture, setup_tracking
 
+    from bds3_tpu_torch.receiver import run_receiver
+
     s = e2e_settings()
     sig = caps.get("e2e")
     res, out = drive_receiver("receiver_e2e", sig, s, 250, 3, 1.0)
+
+    # the float32 cast of the same capture: K1's float32 instance reads the
+    # same values, so tracking is exactly the int8 run's
+    _reset_launch_counts()
+    res32 = run_receiver(sig.astype(np.float32), s, epochs_per_block=250,
+                         verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    t8, t32 = res.track, res32.track
+    same = sorted(t32.outputs) == sorted(t8.outputs) and all(
+        np.array_equal(t32.outputs[k], t8.outputs[k]) for k in t8.outputs) \
+        and np.array_equal(t32.absolute_sample, t8.absolute_sample)
+    if not same or launches["track_fused"] <= 0:
+        raise AssertionError(f"float32 receiver: tracking equal {same}, "
+                             f"launches {launches}")
+    out["float32"] = {"tracking_equal": same, "kernel_launches": launches,
+                      "fixes": 0 if res32.nav is None
+                      else int(np.isfinite(res32.nav.x).sum()),
+                      **{k: float(v) for k, v in res32.timings.items()}}
+    emit({"phase": "receiver_e2e_float32", **out["float32"]})
 
     # the kernel against its plain version at this path's shapes
     capture = as_capture(sig, torch.device("cuda"))
@@ -673,8 +887,7 @@ def phase_full_rate(caps: Captures) -> dict:
     from bds3_tpu_torch.track import prefix
     from bds3_tpu_torch.track.driver import (
         as_capture, assemble_results, run_blocks, setup_tracking, track)
-    from bds3_tpu_torch.track.fused import fused_track_block
-    from bds3_tpu_torch.track.scan import track_block_reference, unpack_rows
+    from bds3_tpu_torch.track.scan import track_block_reference
 
     s = full_settings()
     sig = caps.get("full")
@@ -718,12 +931,7 @@ def phase_full_rate(caps: Captures) -> dict:
     plain_s = time.perf_counter() - t0
 
     k1 = time_k1_clusters(setup, capture, reps=2)
-    _, rows = fused_track_block(setup.cfg, capture, setup.tables,
-                                setup.consts, setup.state)
-    blk = unpack_rows(setup.cfg, rows)["blksize"].cpu().numpy()
-    cur = setup.state.cursor.cpu().numpy()
-    bound = track_fused_bound(setup.cfg, blk,
-                              int((cur + blk.sum(axis=0)).max() - cur.min()))
+    bound = k1_bound(setup, capture)
     plain_ms = time_block(track_block_reference, setup, capture, reps=1)
     seconds_tracked = n_ep * s.int_time
     out = {"phase": "track_99msps_12ch", "epochs": n_ep, "channels": 12,
@@ -1611,9 +1819,12 @@ def main() -> int:
         mxu = phase_mxu_micro()
         small = phase_kernel_small()
         full = phase_kernel_full()
-        phase_full_rate(caps)
+        k1_iq = phase_kernel_iq()
+        b2a = phase_full_rate(caps)
+        trk_iq = phase_track_iq8(b2a)
         stream = phase_stream(caps)
         rx = phase_receiver(caps)
+        rx_iq = phase_receiver_iq8()
         phase_bucket_compare(caps)
         k1_b1c = phase_kernel_b1c(caps)
         phase_acquire_b1c_preset(caps)
@@ -1649,13 +1860,21 @@ def main() -> int:
             "b1c_wb_e2e_receiver": rx_wb["kernel_launches"]["track_fused"],
             "b1c_nb_e2e_receiver": rx_b1c["kernel_launches"]["track_fused"],
             "b2a_e2e_receiver": rx["kernel_launches"]["track_fused"],
+            "b2a_e2e_receiver_float32":
+                rx["float32"]["kernel_launches"]["track_fused"],
             "b2a_streamed_track":
-                stream["none"]["launches"]["track_fused"]},
+                stream["none"]["launches"]["track_fused"],
+            "b2a_iq8_track_complex64": trk_iq["launches"]["track_fused"],
+            "b2a_iq8_e2e_receiver_complex64":
+                rx_iq["kernel_launches"]["track_fused"]},
         "max_abs_err": max(
             [small["max_abs_err"], full["max_abs_err"],
              rx["cmp"]["max_abs_err"], rx_b1c["cmp"]["max_abs_err"],
              rx_wb["cmp"]["max_abs_err"]]
-            + [k1_b1c[c]["max_abs_err"] for c in k1_b1c if c != "phase"]),
+            + [k1_b1c[c]["max_abs_err"] for c in k1_b1c if c != "phase"]
+            + [k1_iq[label][k]["max_abs_err"]
+               for label in ("b2a_12ch", "b1c_wb_preset_10ch")
+               for k in K1_KINDS[1:]]),
         # one W = 20 block of the preset (wideband composite, 10 channels)
         # at the chosen cluster size, and at one block per channel
         "cluster": k1["cluster"],
@@ -1665,6 +1884,12 @@ def main() -> int:
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": None,
+        # one W = 20 block of B2a, 12 channels, 99.375 Msps, through each
+        # of K1's instances at its chosen cluster size
+        "variants_b2a_12ch": {
+            k: {f: k1_iq["b2a_12ch"][k][f] for f in (
+                "cluster", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_share")} for k in K1_KINDS},
     }, {
         "name": "mix_prefix",
         "route": "cuda",

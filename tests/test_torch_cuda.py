@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-tracking kernel (track_fused.cu, for B2a and B1C narrowband and wideband),
+tracking kernel (track_fused.cu, for B2a and B1C narrowband and wideband,
+on int8, float32 and complex64 captures),
 the mix+prefix kernel (mix_prefix.cu) and the matrix-throughput kernel
 (mxu_micro.cu); and tracking streamed block by block from a host source
 against the resident run.  The port's own config and synthesis are used
@@ -10,6 +11,7 @@ Marked `cuda` and skipped without an NVIDIA GPU.  On a machine with one
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -54,11 +56,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _setup(dev, mode, epochs, s=None):
-    s = s or b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6,
-                          track_mode=mode)
-    sig = synthesize_if(s, SATS, n_ms=(epochs + 15) * s.int_time * 1e3,
-                        noise_std=1.0, seed=6)
+def _inits(s):
+    """Channels from the synthesized truth of SATS."""
     inits = []
     for sat in SATS:
         rate = s.code_freq_basis * (1 + sat.doppler_hz / s.carr_freq_basis)
@@ -67,8 +66,16 @@ def _setup(dev, mode, epochs, s=None):
         inits.append(ChannelInit(
             prn=sat.prn, acquired_freq=s.intermediate_freq + sat.doppler_hz,
             code_phase=int(round(start * s.sampling_freq)), peak_metric=2.0))
+    return inits
+
+
+def _setup(dev, mode, epochs, s=None):
+    s = s or b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6,
+                          track_mode=mode)
+    sig = synthesize_if(s, SATS, n_ms=(epochs + 15) * s.int_time * 1e3,
+                        noise_std=1.0, seed=6)
     cap = driver.as_capture(sig, dev)
-    return cap, driver.setup_tracking(cap, s, inits, epochs, epochs)
+    return cap, driver.setup_tracking(cap, s, _inits(s), epochs, epochs)
 
 
 def _rows(cfg, rows):
@@ -133,6 +140,109 @@ def test_b1c_kernel_matches_plain_version(cuda, mode, blend, cluster):
                                    err_msg=n)
 
 
+def _setup_kind(dev, s, epochs, kind):
+    """A capture of `kind` for `s` and its setup: "float32" unquantized
+    real samples, "complex64" an IQ8 capture's pairs widened on the card."""
+    from bds3_tpu_torch.config import FileType
+    from bds3_tpu_torch.io.transport import widen_iq8
+
+    n_ms = (epochs + 15) * s.int_time * 1e3
+    if kind == "complex64":
+        iq = dataclasses.replace(s, file_type=FileType.IQ8)
+        raw = synthesize_if(iq, SATS, n_ms=n_ms, noise_std=1.0, seed=6)
+        cap = widen_iq8(torch.from_numpy(raw).to(dev))
+    else:
+        cap = torch.from_numpy(synthesize_if(
+            s, SATS, n_ms=n_ms, noise_std=1.0, seed=6, quantize=False)).to(dev)
+    return cap, driver.setup_tracking(cap, s, _inits(s), epochs, epochs)
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("kind", ["float32", "complex64"])
+@pytest.mark.parametrize("signal_", ["b2a_nb", "b1c_wb"])
+def test_kernel_variants_match_plain_version(cuda, signal_, kind, cluster):
+    """K1's float32 and complex64 instances against the plain version on
+    the same capture: B2a narrowband at 10 Msps (30 epochs) and B1C
+    wideband at 30 Msps (10 epochs); exact blksize and cursors, every
+    output within 1e-3 of |a|.mean()+1, whatever the cluster size."""
+    if signal_ == "b2a_nb":
+        s, epochs = b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6,
+                                 track_mode=TrackMode.NARROWBAND), 30
+    else:
+        s, epochs = b1c_settings(sampling_freq=30e6, intermediate_freq=7.5e6,
+                                 track_mode=TrackMode.WIDEBAND), 10
+    cap, setup = _setup_kind(cuda, s, epochs, kind)
+    assert setup.cfg.complex_input == (kind == "complex64")
+    before = fused_track_block.launches
+    st_k, rows_k = fused_track_block(setup.cfg, cap, setup.tables,
+                                     setup.consts, setup.state,
+                                     _cluster=cluster)
+    assert fused_track_block.launches == before + 1
+    st_r, rows_r = track_block_reference(setup.cfg, cap, setup.tables,
+                                         setup.consts, setup.state)
+    torch.cuda.synchronize()
+    assert torch.equal(st_k.cursor, st_r.cursor)
+    k, r = _rows(setup.cfg, rows_k), _rows(setup.cfg, rows_r)
+    np.testing.assert_array_equal(k["blksize"], r["blksize"])
+    for n in r:
+        scale = np.abs(r[n]).mean() + 1.0
+        np.testing.assert_allclose(k[n] / scale, r[n] / scale, atol=1e-3,
+                                   err_msg=n)
+
+
+@pytest.mark.parametrize("as_", ["float32", "complex64"])
+@pytest.mark.parametrize("mode", [TrackMode.NARROWBAND, TrackMode.WIDEBAND])
+def test_kernel_variants_equal_int8_bit_for_bit(cuda, mode, as_):
+    """K1 on capture.float() and on capture + 0j equals K1 on the int8
+    capture bit for bit: the same values, and with Q = 0 the complex mix
+    gives the same products (x c + 0 s = x c, 0 c - x s = -(x s)); B2a
+    and B1C wideband (30 Msps), at the chosen cluster size."""
+    if mode == TrackMode.NARROWBAND:
+        cap, setup = _setup(cuda, mode, 30)
+    else:
+        cap, setup = _setup(cuda, mode, 10, b1c_settings(
+            sampling_freq=30e6, intermediate_freq=7.5e6, track_mode=mode))
+    st_a, rows_a = fused_track_block(setup.cfg, cap, setup.tables,
+                                     setup.consts, setup.state)
+    other = cap.float() if as_ == "float32" else cap.to(torch.complex64)
+    cfg = dataclasses.replace(setup.cfg, complex_input=as_ == "complex64")
+    st_b, rows_b = fused_track_block(cfg, other, setup.tables, setup.consts,
+                                     setup.state)
+    torch.cuda.synchronize()
+    assert torch.equal(st_a.cursor, st_b.cursor)
+    assert torch.equal(rows_a.view(torch.int32), rows_b.view(torch.int32))
+    assert torch.equal(st_a.statef.view(torch.int32),
+                       st_b.statef.view(torch.int32))
+
+
+@pytest.mark.parametrize("source", ["complex64", "iq8_pairs"])
+def test_streamed_complex_track_matches_resident(cuda, source):
+    """track() of an IQ8 capture from the host, block by block through
+    K1's complex instance (a complex64 array uploaded as it is, or
+    IQ8Pairs: int8 pairs widened on the card), equals the resident run
+    of the complex64 capture exactly."""
+    from bds3_tpu_torch.config import FileType
+    from bds3_tpu_torch.io.transport import IQ8Pairs
+
+    s = b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6,
+                     file_type=FileType.IQ8)
+    raw = synthesize_if(s, SATS, n_ms=200.0, noise_std=1.0, seed=6)
+    sig = (raw[:, 0].astype(np.float32)
+           + 1j * raw[:, 1].astype(np.float32)).astype(np.complex64)
+    res = driver.track(torch.from_numpy(sig).to(cuda), s, _inits(s),
+                       n_epochs=150, epochs_per_block=40, device=cuda)
+    before = fused_track_block.launches
+    got = driver.track(sig if source == "complex64" else IQ8Pairs(raw), s,
+                       _inits(s), n_epochs=150, epochs_per_block=40,
+                       device=cuda, sync_each_block=True)
+    assert fused_track_block.launches == before + 4
+    assert got.n_epochs == res.n_epochs == 150
+    np.testing.assert_array_equal(got.absolute_sample, res.absolute_sample)
+    for n in res.outputs:
+        np.testing.assert_array_equal(got.outputs[n], res.outputs[n],
+                                      err_msg=n)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     cap, setup = _setup(cuda, TrackMode.NARROWBAND, 10)
     bad_state = TrackState(setup.state.cursor, setup.state.statef.double())
@@ -143,6 +253,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         fused_track_block(setup.cfg, cap, setup.tables, setup.consts,
                           cpu_state)
+    # a capture dtype the kernel has no instance for, or a complex one
+    # for a config built for real input
+    for bad_cap in (cap.to(torch.int16), cap.to(torch.complex64)):
+        with pytest.raises(TypeError):
+            fused_track_block(setup.cfg, bad_cap, setup.tables, setup.consts,
+                              setup.state)
     # clusters of 32 blocks are beyond the card: the launch is refused
     # and the wrapper raises
     with pytest.raises(RuntimeError):

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import bds3_tpu.track.driver as ref_driver
+from bds3_tpu.config import FileType as RefFileType
 from bds3_tpu.config import TrackMode, b1c_settings, b2a_settings
 from bds3_tpu.io import SatParams, synthesize_if
 from bds3_tpu.io.scenario import make_scenario, synthesize_scenario
@@ -180,20 +181,25 @@ def test_cuda_request_without_card_raises(scenario, monkeypatch):
 
 
 def test_unsupported_config_raises_before_work():
-    """The B1C preset (wideband, resampled acquisition) is ported: it
-    passes the port's checks, and its acquisition window maps back from
-    the resampled rate as the reference's does.  IQ captures are refused
-    before any work, and so is another package's Settings."""
+    """The B1C preset (wideband, resampled acquisition) is ported, real and
+    IQ8: it passes the port's checks, and its acquisition window maps back
+    from the resampled rate as the reference's does.  An IQ8 capture with
+    a packed transport is refused before any work (ValueError, not the
+    RuntimeError a CUDA request makes here without a card), and so is
+    another package's Settings."""
     s = P(b1c_settings())
-    port_receiver.check_ported(s)
-    assert port_receiver.acquisition_signal_length(s) == \
-        ref_acquisition_signal_length(b1c_settings())
-    for bad, err in ((dataclasses.replace(s, file_type=FileType.IQ8),
-                      NotImplementedError),
-                     (b1c_settings(), TypeError)):
+    iq8 = dataclasses.replace(s, file_type=FileType.IQ8)
+    for ok in (s, iq8):
+        port_receiver.check_ported(ok)
+        assert port_receiver.acquisition_signal_length(ok) == \
+            ref_acquisition_signal_length(b1c_settings())
+    for sig, bad, transport, err in (
+            (np.zeros((1000, 2), np.int8), iq8, "int4", ValueError),
+            (np.zeros((1000, 2), np.int8), s, "int2", ValueError),
+            (np.zeros(1000, np.int8), b1c_settings(), "none", TypeError)):
         with pytest.raises(err):
-            port_receiver.run_receiver(np.zeros(1000, np.int8), bad,
-                                       verbose=False, device="cuda")
+            port_receiver.run_receiver(sig, bad, verbose=False,
+                                       device="cuda", transport=transport)
 
 
 def test_imports_without_jax():
@@ -236,9 +242,10 @@ class TestCLI:
                              env=env, cwd=REPO)
         assert res.returncode == 0, res.stderr[-2000:]
 
-    # the first case was --resample, ported now; IQ captures are not, with
-    # or without the --transport packing (ported: test_torch_stream.py)
-    @pytest.mark.parametrize("extra", [["--file-type", "2"],
+    # --resample and IQ captures run now (test_iq8_file_tracks); what is
+    # refused is packing an IQ capture, whose samples are not real int8
+    @pytest.mark.parametrize("extra", [["--file-type", "2",
+                                        "--transport", "int2"],
                                        ["--file-type", "2",
                                         "--transport", "int4"]])
     def test_unported_options_exit_with_error(self, tmp_path, extra):
@@ -249,7 +256,31 @@ class TestCLI:
             capture_output=True, text=True, timeout=400,
             env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
         assert out.returncode != 0
-        assert "not ported" in out.stderr
+        assert "re-quantizes real int8 samples, and this capture is IQ8" \
+            in out.stderr
+
+    def test_iq8_file_tracks(self, tmp_path):
+        """--file-type 2 (interleaved int8 I/Q) runs end to end on the CPU,
+        with --probe (its spectrum of I alone, as the reference's), through
+        the tracking kernel's plain version on the complex samples."""
+        s = b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6,
+                         file_type=RefFileType.IQ8)
+        sat = SatParams(prn=19, doppler_hz=500.0, code_phase_chips=100.0,
+                        amplitude=0.9)
+        path = tmp_path / "iq8.bin"
+        synthesize_if(s, [sat], n_ms=120.0, noise_std=1.5,
+                      seed=3).tofile(path)
+        out = subprocess.run(
+            [sys.executable, "-m", "bds3_tpu_torch", "--signal", "b2a",
+             "--file", str(path), "--device", "cpu", "--file-type", "2",
+             "--fs", "10e6", "--if-freq", "2.5e6", "--prns", "19,7",
+             "--ms", "100", "--probe"],
+            capture_output=True, text=True, timeout=400,
+            env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert "probe:" in out.stdout
+        assert "[acquire]" in out.stdout and "19(" in out.stdout
+        assert "[track]" in out.stdout and "reference on cpu" in out.stdout
 
     def test_b1c_narrowband_tracks(self, tmp_path):
         """--signal b1c --track-mode 1 runs end to end (6 Msps, no
@@ -272,9 +303,10 @@ class TestCLI:
         assert "reference on cpu" in out.stdout
 
     def test_b1c_exits_with_error(self, tmp_path):
-        """B1C runs at its preset now; an IQ capture still exits with an
-        error before the file is opened, with any --transport."""
-        for extra in (["--file-type", "2"],
+        """B1C runs at its preset now, real or IQ; an IQ capture with a
+        packed --transport exits with an error before the file is
+        opened."""
+        for extra in (["--file-type", "2", "--transport", "int4"],
                       ["--file-type", "2", "--transport", "int2"]):
             out = subprocess.run(
                 [sys.executable, "-m", "bds3_tpu_torch", "--signal", "b1c",
@@ -282,7 +314,8 @@ class TestCLI:
                  *extra],
                 capture_output=True, text=True, timeout=400,
                 env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
-            assert out.returncode != 0 and "not ported" in out.stderr
+            assert out.returncode != 0
+            assert "re-quantizes real int8 samples" in out.stderr
 
     def test_b1c_preset_runs(self, tmp_path):
         """--signal b1c at its preset's track mode (wideband) with its

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from bds3_tpu.config import b1c_settings, b2a_settings
+from bds3_tpu.config import FileType, b1c_settings, b2a_settings
 from bds3_tpu.io import SatParams, synthesize_if
 from bds3_tpu.io.stream import StreamingCapture as RefStreamingCapture
 from bds3_tpu.track import driver as ref_driver
@@ -226,10 +226,17 @@ def test_cli_accepts_transport(capture, tmp_path):
 
 
 @pytest.mark.parametrize("signal_, kw", [
-    ("b2a", S10), ("b1c", dict(sampling_freq=30e6, intermediate_freq=7.5e6))])
+    ("b2a", S10), ("b1c", dict(sampling_freq=30e6, intermediate_freq=7.5e6)),
+    ("b2a", dict(S10, file_type=FileType.IQ8)),
+    ("b1c", dict(sampling_freq=30e6, intermediate_freq=7.5e6,
+                 file_type=FileType.IQ8))])
 def test_render_if_equals_host(signal_, kw):
     """render_if on the CPU without noise equals synthesize_if sample for
-    sample, from an offset start (the 49 s capture's segments)."""
+    sample, from an offset start (the 49 s capture's segments).  IQ8: the
+    host forms amp * wave * e^{j phase} with complex exp, the render
+    a * cos and a * sin; where they round to other integers, the sample
+    is a rounding tie (its unquantized value within 1e-4 of k + 1/2) and
+    differs by 1, and at most 1e-4 of the values do."""
     from bds3_tpu_torch.io import synth
 
     s = (b2a_settings if signal_ == "b2a" else b1c_settings)(**kw)
@@ -237,8 +244,18 @@ def test_render_if_equals_host(signal_, kw):
     sats = [synth.SatParams(**vars(x)) for x in SATS]
     want = synth.synthesize_if(ps, sats, n_ms=12.0, start_sample=12_345)
     got = render.render_if(ps, sats, 12.0, "cpu", start_sample=12_345,
-                           chunk=1 << 16)
-    np.testing.assert_array_equal(got.numpy(), want)
+                           chunk=1 << 16).numpy()
+    if s.file_type != FileType.IQ8:
+        np.testing.assert_array_equal(got, want)
+        return
+    assert got.shape == want.shape == (want.shape[0], 2)
+    diff = got.astype(np.int16) - want
+    off = diff != 0
+    exact = synth.synthesize_if(ps, sats, n_ms=12.0, start_sample=12_345,
+                                quantize=False)
+    ties = np.abs(np.abs(exact - np.floor(exact)) - 0.5) < 1e-4
+    assert np.all(np.abs(diff) <= 1) and np.all(ties[off])
+    assert off.sum() <= 1e-4 * off.size, off.sum()
 
 
 @pytest.mark.parametrize("signal_", ["b2a", "b1c"])

@@ -26,7 +26,6 @@ from bds3_tpu_torch.track import state as port_state
 from bds3_tpu_torch.track.fused import cuda_supported, fused_track_block
 from bds3_tpu_torch.track.scan import (
     output_names,
-    reference_supported,
     slot_names,
     track_block_reference,
     unpack_rows,
@@ -187,21 +186,26 @@ def test_wrapper_runs_plain_version_on_cpu():
                  wb_code_blend="dotprod"),
 ], ids=["b1c_wb_split", "b1c_wb", "b1c_wb_dotprod"])
 def test_unsupported_config_raises_on_cuda_request(settings):
-    """B1C wideband is ported: the kernel's gate takes it in each blend
-    (its tables fit one block's shared memory at 99.375 Msps).  What the
-    port does not cover in these settings, complex input, raises
-    NotImplementedError before any device is touched (so also here,
-    without a card), and so does another package's Settings (TypeError):
-    its Signal.B1C is not the port's."""
+    """B1C wideband is ported, on real and complex input: the kernel's
+    gate takes it in each blend (its tables fit one block's shared memory
+    at 99.375 Msps; the capture's dtype does not count).  What does not
+    apply raises before any device is touched (so also here, without a
+    card): an IQ8 capture's (N, 2) pairs handed to track() (ValueError,
+    naming the conversion), bucket_pallas on complex input, and another
+    package's Settings (TypeError): its Signal.B1C is not the port's."""
     s = P(settings)
     assert cuda_supported(port_state.make_track_config(s))
-    assert not cuda_supported(port_state.make_track_config(
+    assert cuda_supported(port_state.make_track_config(
         s, complex_input=True))
     init = port_state.ChannelInit(prn=19, acquired_freq=1e6, code_phase=5,
                                   peak_metric=2.0)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="IQ8Pairs"):
         port_driver.track(np.zeros((1000, 2), np.int8), s, [init],
                           n_epochs=10, device="cuda")
+    with pytest.raises(NotImplementedError, match="scan.py:378"):
+        port_driver.track(np.zeros(1000, np.complex64), s, [init],
+                          n_epochs=10, device="cuda",
+                          correlator="bucket_pallas")
     with pytest.raises(TypeError, match="settings_from_reference"):
         port_driver.track(np.zeros(1000, np.int8), settings, [init],
                           n_epochs=10, device="cuda")
@@ -212,25 +216,72 @@ def test_unsupported_config_raises_on_cuda_request(settings):
     np.zeros((1000, 2), np.int8),
 ], ids=["float32", "complex64", "iq8"])
 def test_unsupported_capture_raises_on_cuda_request(capture):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """float32 and complex64 captures are taken as they are (here on the
+    CPU).  An IQ8 capture's (N, 2) int8 pairs are not a 1-D capture: they
+    raise on a request for the card before any device is touched, with
+    the conversion run_receiver makes."""
+    if capture.ndim == 1:
+        got = port_driver.as_capture(capture, "cpu")
+        assert got.dtype == {np.float32: torch.float32,
+                             np.complex64: torch.complex64}[capture.dtype.type]
+        assert got.shape == (1000,)
+        return
+    with pytest.raises(ValueError, match="widen_iq8"):
         port_driver.as_capture(capture, "cuda")
+
+
+@pytest.mark.parametrize("capture", [
+    np.zeros(1000, np.complex64), np.zeros(1000, np.float32),
+    np.zeros(1000, np.int16),
+], ids=["complex64", "float32", "int16"])
+def test_bucket_pallas_refuses_what_its_kernel_does_not_read(capture):
+    """The mix+prefix kernel reads real int8: bucket_pallas on a complex
+    or float capture raises before any device work (the reference mixes
+    complex input in XLA instead, bds3_tpu/track/scan.py:378); the other
+    paths take them."""
+    s = P(b2a_settings(**S10))
+    init = port_state.ChannelInit(prn=19, acquired_freq=1e6, code_phase=5,
+                                  peak_metric=2.0)
+    with pytest.raises(NotImplementedError, match="real int8"):
+        port_driver.track(capture, s, [init], n_epochs=10, device="cuda",
+                          correlator="bucket_pallas")
+    for ok in ("fused", "gather", "bucket"):
+        cfg = port_state.make_track_config(s, capture.dtype.kind == "c")
+        assert port_driver.choose_correlator(cfg, ok, capture.dtype) == ok
+
+
+@pytest.mark.parametrize("packing", ["int4", "int2"])
+@pytest.mark.parametrize("capture", [
+    np.zeros(1000, np.float32), np.zeros(1000, np.complex64),
+], ids=["float32", "complex64"])
+def test_packing_refuses_captures_other_than_int8(capture, packing):
+    """int4 and int2 re-quantize real int8 samples: track() refuses them
+    for a float or complex capture before any device work."""
+    s = P(b2a_settings(**S10))
+    init = port_state.ChannelInit(prn=19, acquired_freq=1e6, code_phase=5,
+                                  peak_metric=2.0)
+    with pytest.raises(ValueError, match=f"packing '{packing}'"):
+        port_driver.track(capture, s, [init], n_epochs=10, device="cuda",
+                          transport=packing)
 
 
 def test_supported_gate():
     """The CUDA tracking kernel takes B2a and B1C in every track mode on
-    real input, and "auto" sends them all to it, as the reference sends
-    B1C to its fused kernel on its chip; complex input is refused."""
+    real and complex input, and "auto" sends them all to it, as the
+    reference sends B1C to its fused kernel on its chip."""
     s = P(b2a_settings(**S10))
     assert cuda_supported(port_state.make_track_config(s))
     for mode in (TrackMode.DATA_ONLY, TrackMode.WIDEBAND):
         assert cuda_supported(port_state.make_track_config(
             P(b2a_settings(track_mode=mode))))
-    assert not cuda_supported(port_state.make_track_config(
+    assert cuda_supported(port_state.make_track_config(
         s, complex_input=True))
+    assert port_driver.choose_correlator(port_state.make_track_config(
+        s, complex_input=True), "auto", np.complex64) == "fused"
     for mode in TrackMode:
         cfg = port_state.make_track_config(
             P(b1c_settings(track_mode=mode, resampling=False)))
-        assert reference_supported(cfg) and cuda_supported(cfg)
+        assert cuda_supported(cfg)
         assert port_driver.choose_correlator(cfg) == "fused"
         assert port_driver.choose_correlator(cfg, "bucket_pallas") == \
             "bucket_pallas"

@@ -77,3 +77,49 @@ def test_upload_capture_refuses_cuda_without_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         port_tx.upload_capture(_samples(100), "int4", device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64, np.int16])
+def test_upload_capture_keeps_float_and_complex(dtype):
+    """float32 and complex64 captures go up as they are (the reference
+    truncates every capture to int8, bds3_tpu/io/transport.py:100); other
+    real dtypes as float32, as the reference's per-block path casts them."""
+    rng = np.random.default_rng(3)
+    a = (rng.standard_normal(N) * 7.3).astype(dtype)
+    if dtype == np.complex64:
+        a = a + 1j * (rng.standard_normal(N) * 5.1).astype(np.float32)
+    got = port_tx.upload_capture(a, "none", device="cpu")
+    want = a.astype(port_tx.capture_dtype(a.dtype))
+    assert got.dtype == {np.float32: torch.float32, np.int16: torch.float32,
+                         np.complex64: torch.complex64}[dtype]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("source", ["ndarray", "pairs", "slice"])
+def test_iq8_pairs_widen_to_complex64(source):
+    """An IQ8 capture's (N, 2) int8 pairs go up as int8 and are widened
+    where they land: raw[:, 0] + 1j * raw[:, 1], as the reference widens
+    them on the host (bds3_tpu/receiver.py:87-92); IQ8Pairs' host slices
+    widen the same way."""
+    raw = _samples(2 * N, seed=4).reshape(N, 2)
+    want = (raw[:, 0].astype(np.float32)
+            + 1j * raw[:, 1].astype(np.float32)).astype(np.complex64)
+    if source == "slice":
+        got = port_tx.IQ8Pairs(raw)[123:4567]
+        assert got.dtype == np.complex64
+        np.testing.assert_array_equal(got, want[123:4567])
+        return
+    src = raw if source == "ndarray" else port_tx.IQ8Pairs(raw)
+    got = port_tx.upload_capture(src, "none", device="cpu")
+    assert got.dtype == torch.complex64 and got.shape == (N,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("packing", ["int4", "int2"])
+def test_packing_refuses_float_complex_and_pairs(packing):
+    """int4 and int2 re-quantize real int8 samples; a float, complex or
+    IQ8 capture raises a ValueError naming the packing."""
+    for a in (np.zeros(100, np.float32), np.zeros(100, np.complex64),
+              np.zeros((100, 2), np.int8)):
+        with pytest.raises(ValueError, match=f"packing '{packing}'"):
+            port_tx.upload_capture(a, packing, device="cpu")

@@ -4,7 +4,8 @@ kernels for NVIDIA Hopper (sm_90a).
 A port of `bds3_tpu` (JAX/XLA/Pallas), which stays beside it as the
 reference the port is tested against.  The modules mirror the reference's
 layout: `acquire.{pcps,resample}`, `track.{state,scan,fused,prefix,
-driver}`, `utils.phase`, `receiver` and `__main__`.  The host modules
+driver}`, `utils.phase`, `parallel` (on torch.distributed, one process
+per rank), `receiver` and `__main__`.  The host modules
 (`config`, `signals`, `navmsg`, `pvt`, `observe.cn0`, `io`) are the
 reference's, copied with the import prefix rewritten: the port imports
 nothing of `bds3_tpu`.

@@ -3,7 +3,9 @@
 `nvcc` compiles every `csrc/*.cu` for sm_90a (Hopper), one process per
 source, all started together, and links the objects into
 `_build/libbds3_tpu_torch_<hash>.so`, keyed by a hash of the sources and
-the flags.  The library is loaded with ctypes: each kernel has a plain C
+the flags.  Processes that start together (the ranks of a parallel run)
+build it once: a file lock is held around the build, and whoever waited
+on it finds the library built.  The library is loaded with ctypes: each kernel has a plain C
 entry point that takes pointers, sizes and a stream and returns
 `cudaGetLastError()`.  No PyTorch header is compiled, which keeps a build
 to seconds.  The compiler's output (ptxas register and shared-memory
@@ -11,7 +13,9 @@ counts) is kept beside the library as `<name>.log`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -89,14 +93,32 @@ def build(so: Path) -> str:
     return "".join(log)
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded library, compiled first if this source hash is new."""
+@contextlib.contextmanager
+def _locked(path: Path):
+    """An exclusive lock on `path` (released when its process ends too)."""
+    with open(path, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def ensure_built() -> Path:
+    """The library's path, compiled first if this source hash is new."""
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        t0 = time.perf_counter()
-        log = build(so)
-        so.with_suffix(".log").write_text(
-            f"built in {time.perf_counter() - t0:.3f} s\n{log}")
-    return ctypes.CDLL(str(so))
+        with _locked(so.with_suffix(".lock")):
+            if not so.exists():
+                t0 = time.perf_counter()
+                log = build(so)
+                so.with_suffix(".log").write_text(
+                    f"built in {time.perf_counter() - t0:.3f} s\n{log}")
+    return so
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded library, compiled first if this source hash is new."""
+    return ctypes.CDLL(str(ensure_built()))

@@ -109,6 +109,25 @@ port's main path through its public entry points:
              call over 10 back-to-back calls, the plain version once;
              K3 and the one call held to the plain result, with K3's
              grid.
+ 13. parallel  (before prefix) the parallel/ paths with their ranks side
+             by side on this card (parallel.worker through
+             parallel.launch.launch_local, gloo, cuda:0), over the cached
+             captures, each against the parent's one-process run:
+             parallel_channel_b2a_12ch (2 ranks x 6 channels, 2000 epochs
+             through sharded_track_block: rows equal track()'s bit for
+             bit), parallel_nccl_world1 (the same on one rank over NCCL),
+             parallel_time_b2a_12ch (time_sharded_track, 2 ranks, 2
+             groups, against track() at 1000 epochs a block),
+             parallel_time2d_b1c_wb (the preset on a (2, 2) time x
+             channel mesh, 200 epochs, BOC(6,1) included) within
+             rtol 3e-5, atol 3e-4 and blksize exactly; every tracking
+             rank launches K1 and holds a 20-epoch block of it to its
+             plain version within 1e-3.  parallel_acq_b2a: PRN- and
+             Doppler-sharded search over 2 ranks (63 PRNs) with winners
+             equal to one search's and peaks within 1e-5, and the
+             time-sharded non-coherent search (4 rounds a rank, a
+             63 x 25 x 99,375 cube) within 1e-5 of one rank's, the 4
+             satellites at their bins.
 
 With `--profile` it runs only the build and then torch.profiler over
 short runs of the tracking cells (see phase_profile), one JSON line each,
@@ -1307,9 +1326,11 @@ def _reset_launch_counts():
     mxu_micro.launches = 0
 
 
-def _timed_track(capture, s, inits, n_ep, correlator="auto"):
+def _timed_track(capture, s, inits, n_ep, correlator="auto",
+                 per_block=None):
     """track() cold, then warm with the launch counts set to 0 just before
-    it: (results, cold s, warm s, the warm run's launches)."""
+    it, in one block or in blocks of `per_block` epochs: (results, cold s,
+    warm s, the warm run's launches)."""
     import torch
 
     from bds3_tpu_torch.track.driver import track
@@ -1319,7 +1340,8 @@ def _timed_track(capture, s, inits, n_ep, correlator="auto"):
         _reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trk = track(capture, s, inits, n_epochs=n_ep, epochs_per_block=n_ep,
+        trk = track(capture, s, inits, n_epochs=n_ep,
+                    epochs_per_block=per_block or n_ep,
                     device=capture.device, correlator=correlator)
         walls.append(time.perf_counter() - t0)
     if trk.n_epochs != n_ep:
@@ -1429,6 +1451,284 @@ def phase_receiver_b1c_wb(caps: Captures) -> dict:
     emit({"phase": "kernel_vs_plain_b1c_wb_receiver_shapes", **cmp})
     del capture
     return {**out, "cmp": cmp}
+
+
+# --- the parallel paths: ranks side by side on one card --------------------
+
+PARALLEL = os.path.join(REPO, "bds3_tpu_torch", "_build", "parallel")
+TS_RTOL, TS_ATOL = 3e-5, 3e-4   # tests/test_timeshard_track.py:52-54
+ACQ_RTOL = 1e-5                 # sharded search vs one rank, same card
+
+
+def parallel_job(phase: str, nproc: int, cases: list, settings: dict,
+                 signal_files: dict, arrays: dict | None = None,
+                 backend: str = "gloo") -> tuple[dict, float]:
+    """Runs `cases` on nproc ranks of parallel.worker, all on cuda:0
+    (parallel.launch.launch_local, a FileStore rendezvous): rank 0's
+    results, and the seconds of the whole launch."""
+    import shutil
+
+    from bds3_tpu_torch.parallel import worker
+
+    d = os.path.join(PARALLEL, phase)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    job, out = os.path.join(d, "job.npz"), os.path.join(d, "out.npz")
+    worker.write_job(job, cases, settings, arrays, signal_files)
+    t0 = time.perf_counter()
+    res = worker.run_job(nproc, job, out, device="cuda:0", backend=backend,
+                         store=os.path.join(d, "store"), timeout=600)
+    return res, time.perf_counter() - t0
+
+
+def _outputs(res: dict, case: str) -> dict:
+    return {k.split("/", 1)[1]: v for k, v in res.items()
+            if k.startswith(case + "/")}
+
+
+def _k1_ranks(res: dict, case: str, n: int) -> dict:
+    """Each rank's tracking-kernel launches and its K1 check; fails unless
+    every rank launched K1 and held it to its plain version."""
+    launches = res[f"{case}/k1_launches"][:n]
+    if not (launches > 0).all():
+        raise AssertionError(f"{case}: a rank launched no K1: {launches}")
+    eq = np.concatenate([res[f"{case}/k1_check_blksize_equal"],
+                         res[f"{case}/k1_check_cursor_equal"]])
+    scaled = res[f"{case}/k1_check_scaled_err"]
+    if not eq.all() or not (scaled <= TOL).all():
+        raise AssertionError(f"{case}: K1 vs plain in a rank: equal "
+                             f"{eq.tolist()}, scaled {scaled.tolist()}")
+    return {"k1_launches_by_rank": launches.tolist(),
+            "k1_check_scaled_err_by_rank": scaled.tolist(),
+            "k1_check_abs_err_by_rank":
+                res[f"{case}/k1_check_abs_err"].tolist(),
+            "rank_wall_s": float(res[f"{case}/wall_s"])}
+
+
+def _held_to(label: str, got: dict, ref: dict, names, rtol: float,
+             atol: float) -> dict:
+    """Asserts got's outputs against ref's (blksize exactly); the largest
+    absolute difference of each."""
+    if not np.array_equal(got["blksize"], ref["blksize"]):
+        raise AssertionError(f"{label}: blksize differs")
+    diffs = {}
+    for k in names:
+        diffs[k] = float(np.abs(got[k] - ref[k]).max())
+        if not np.allclose(got[k], ref[k], rtol=rtol, atol=atol):
+            raise AssertionError(f"{label}: {k} beyond rtol {rtol}, atol "
+                                 f"{atol}: {diffs[k]}")
+    return diffs
+
+
+def phase_parallel_channel(caps: Captures) -> dict:
+    """parallel_channel_b2a_12ch and parallel_nccl_world1: the bench's
+    headline configuration (B2a, 99.375 Msps, 12 channels) on the full
+    capture, 2000 epochs in one block through sharded_track_block: on 2
+    ranks x 6 channels over gloo, then on a world of one rank over NCCL.
+    The gathered rows must equal the parent's own track(), bit for bit;
+    every rank holds a 20-epoch K1 block to its plain version."""
+    import torch
+
+    from bds3_tpu_torch.parallel import worker
+    from bds3_tpu_torch.track.driver import as_capture
+
+    s = full_settings()
+    sig = caps.get("full")
+    inits = make_inits(s, FULL_SATS, 12)
+    n_ep = 2000
+    trk, _, warm, one = _timed_track(as_capture(sig, torch.device("cuda")),
+                                     s, inits, n_ep)
+    ref = trk.outputs
+    case = dict(name="channel", mode="channel", settings="s",
+                signal="full", inits="inits", epochs=n_ep,
+                epochs_per_block=n_ep, warm=True, check_k1=True)
+    files = {"full": caps.paths["full"]}
+    arrays = {"inits": worker.inits_to_array(inits)}
+    outs = {}
+    for phase, n, backend in (("parallel_channel_b2a_12ch", 2, "gloo"),
+                              ("parallel_nccl_world1", 1, "nccl")):
+        res, launch_s = parallel_job(phase, n, [{**case, "n_devices": n}],
+                                     {"s": s}, files, arrays, backend)
+        got = _outputs(res, "channel")
+        names = [k for k in ref if k != "blksize"]
+        diffs = _held_to(phase, got, ref, names, 0.0, 0.0)
+        out = {"phase": phase, "ranks": n, "backend": backend,
+               "channels": 12, "epochs": n_ep,
+               "max_abs_diff_vs_one_process": max(diffs.values()),
+               **_k1_ranks(res, "channel", n), "launch_s": launch_s,
+               "one_process_warm_s": warm,
+               "one_process_k1_launches": one["track_fused"]}
+        emit(out)
+        outs[phase] = out
+    return outs
+
+
+def phase_parallel_time(caps: Captures) -> dict:
+    """parallel_time_b2a_12ch: time_sharded_track over 2 ranks on the time
+    axis, 2 groups of 6 channels, 2000 epochs on the full capture,
+    against the parent's track() at epochs_per_block = 1000."""
+    import torch
+
+    from bds3_tpu_torch.parallel import worker
+    from bds3_tpu_torch.track.driver import as_capture
+
+    s = full_settings()
+    sig = caps.get("full")
+    inits = make_inits(s, FULL_SATS, 12)
+    n_ep = 2000
+    trk, _, warm, _ = _timed_track(as_capture(sig, torch.device("cuda")), s,
+                                   inits, n_ep, per_block=1000)
+    res, launch_s = parallel_job(
+        "parallel_time_b2a_12ch", 2,
+        [dict(name="time", mode="time", n_devices=2, settings="s",
+              signal="full", inits="inits", epochs=n_ep, n_groups=2,
+              warm=True, check_k1=True)],
+        {"s": s}, {"full": caps.paths["full"]},
+        {"inits": worker.inits_to_array(inits)})
+    diffs = _held_to("parallel_time_b2a_12ch", _outputs(res, "time"),
+                     trk.outputs, ("d_ip", "d_qp", "carr_err", "code_err"),
+                     TS_RTOL, TS_ATOL)
+    out = {"phase": "parallel_time_b2a_12ch", "ranks": 2, "groups": 2,
+           "channels": 12, "epochs": n_ep, "max_abs_diff": diffs,
+           "locked": lock_count(trk, 500), **_k1_ranks(res, "time", 2),
+           "launch_s": launch_s, "one_process_warm_s": warm}
+    emit(out)
+    return out
+
+
+def phase_parallel_time2d(caps: Captures) -> dict:
+    """parallel_time2d_b1c_wb: the B1C preset (wideband QMBOC, composite,
+    10 channels, 99.375 Msps) on a ("time", "channel") mesh of (2, 2),
+    200 epochs of the b1c_full capture, 100 a time segment, one group of
+    10 channels split 5 and 5 over the channel axis; against the parent's
+    track() at epochs_per_block = 100, the BOC(6,1) bank included."""
+    import torch
+
+    from bds3_tpu_torch.parallel import worker
+    from bds3_tpu_torch.track.driver import as_capture
+
+    s = b1c_preset_settings()
+    sig = caps.get("b1c_full")
+    inits = make_inits(s, FULL_SATS, 10)
+    n_ep = 200
+    trk, _, warm, _ = _timed_track(as_capture(sig, torch.device("cuda")), s,
+                                   inits, n_ep, per_block=100)
+    res, launch_s = parallel_job(
+        "parallel_time2d_b1c_wb", 4,
+        [dict(name="time2d", mode="time2d", n_devices=4, shape=[2, 2],
+              settings="s", signal="b1c_full", inits="inits",
+              epochs=n_ep, n_groups=1, warm=True, check_k1=True)],
+        {"s": s}, {"b1c_full": caps.paths["b1c_full"]},
+        {"inits": worker.inits_to_array(inits)})
+    got = _outputs(res, "time2d")
+    if "p61_ip" not in got:
+        raise AssertionError("parallel_time2d_b1c_wb: no BOC(6,1) outputs")
+    diffs = _held_to("parallel_time2d_b1c_wb", got, trk.outputs,
+                     ("d_ip", "d_qp", "carr_err", "code_err", "p61_ip",
+                      "p61_qp"), TS_RTOL, TS_ATOL)
+    out = {"phase": "parallel_time2d_b1c_wb", "ranks": 4, "mesh": [2, 2],
+           "groups": 1, "channels": 10, "epochs": n_ep,
+           "max_abs_diff": diffs, "locked": lock_count(trk, 100),
+           **_k1_ranks(res, "time2d", 4), "launch_s": launch_s,
+           "one_process_warm_s": warm}
+    emit(out)
+    return out
+
+
+def phase_parallel_acq(caps: Captures) -> dict:
+    """parallel_acq_b2a: PRN- and Doppler-sharded coarse search over 2
+    ranks, 63 PRNs at 99.375 Msps, against the parent's coarse_search on
+    the same grid (PRNs padded to 64 with a repeat, bins to 26 with one
+    more); then noncoherent_acquire_timesharded over 2 ranks, 4 rounds a
+    rank, 63 PRNs x 25 bins, against one rank with 8 rounds: the planted
+    satellites win at their bins and the cubes agree within 1e-5."""
+    import dataclasses
+
+    import torch
+
+    from bds3_tpu_torch.acquire.pcps import (
+        acq_code_tables, coarse_search, make_acq_config)
+    from bds3_tpu_torch.parallel.mesh import make_mesh
+    from bds3_tpu_torch.parallel.timeshard import (
+        noncoherent_acquire_timesharded)
+    from bds3_tpu_torch.utils.phase import phase_tables
+
+    s = full_settings()
+    sig = caps.get("full")
+    dev = torch.device("cuda")
+    cfg = make_acq_config(s)
+    prns = list(s.acq_satellite_list)
+    grids = {"prn": (prns + prns[-1:], cfg.n_bins),
+             "doppler": (prns, 2 * -(-cfg.n_bins // 2))}
+    rounds = 4
+    cases = [dict(name=m, mode=f"acq_{m}", n_devices=2, settings="s",
+                  signal="full", prns=p, bins=b, warm=True)
+             for m, (p, b) in grids.items()]
+    cases.append(dict(name="noncoh", mode="acq_noncoh", n_devices=2,
+                      settings="s", signal="full", prns=prns,
+                      rounds=rounds, warm=True))
+    res, launch_s = parallel_job("parallel_acq_b2a", 2, cases, {"s": s},
+                                 {"full": caps.paths["full"]})
+    sig_t = torch.from_numpy(np.asarray(sig[: cfg.n_fft], np.float32)).to(dev)
+    out = {"phase": "parallel_acq_b2a", "ranks": 2, "prns": len(prns),
+           "launch_s": launch_s}
+    for m, (p, b) in grids.items():
+        d8, p8 = (torch.from_numpy(x).to(dev)
+                  for x in acq_code_tables(s, np.asarray(p)))
+        freqs = cfg.freq_base + cfg.freq_step * np.arange(b)
+        a_b, c1_b = (torch.from_numpy(x).to(dev)
+                     for x in phase_tables(freqs, cfg.fs))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, bb, ph = (x.cpu().numpy() for x in coarse_search(
+            sig_t, d8, p8, a_b, c1_b, dataclasses.replace(cfg, n_bins=b)))
+        one_s = time.perf_counter() - t0
+        n = len(prns)
+        got = _outputs(res, m)
+        if not (np.array_equal(got["bin"][:n], bb[:n])
+                and np.array_equal(got["phase"][:n], ph[:n])):
+            raise AssertionError(f"parallel_acq_b2a {m}: winners differ")
+        rel = float((np.abs(got["peak"][:n] - v[:n]) / v[:n]).max())
+        if not rel <= ACQ_RTOL:
+            raise AssertionError(f"parallel_acq_b2a {m}: peaks {rel} apart")
+        out[m] = {"peak_max_rel_diff": rel, "bins": b,
+                  "rank_wall_s": float(res[f"{m}/wall_s"]),
+                  "one_process_s": one_s}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cube1, f1, p1 = noncoherent_acquire_timesharded(
+        make_mesh(1, device=dev), sig, s, prns, 2 * rounds)
+    one_s = time.perf_counter() - t0
+    got = _outputs(res, "noncoh")
+    if not (np.array_equal(got["freq"], f1)
+            and np.array_equal(got["phase"], p1)):
+        raise AssertionError("parallel_acq_b2a noncoh: winners differ from "
+                             "one rank's")
+    rel = float((np.abs(got["cube"] - cube1) / np.abs(cube1)).max())
+    if not rel <= ACQ_RTOL:
+        raise AssertionError(f"parallel_acq_b2a noncoh: cube {rel} apart")
+    planted = {}
+    for prn, fd, cp in FULL_SATS:
+        i = prns.index(prn)
+        f_err = float(got["freq"][i] - (s.intermediate_freq + fd))
+        rate = s.code_freq_basis * (1 + fd / s.carr_freq_basis)
+        expect = ((s.code_length - cp % s.code_length) % s.code_length) \
+            / rate * s.sampling_freq
+        ph_err = (got["phase"][i] - expect) % s.samples_per_code
+        ph_err = float(min(ph_err, s.samples_per_code - ph_err))
+        planted[prn] = {"freq_err_hz": f_err, "phase_err_samples": ph_err}
+        if abs(f_err) > cfg.freq_step / 2 or ph_err > s.sampling_freq \
+                / s.code_freq_basis:
+            raise AssertionError(f"parallel_acq_b2a noncoh: PRN {prn} "
+                                 f"won at {planted[prn]}")
+    out["noncoh"] = {"cube_shape": list(got["cube"].shape),
+                     "rounds_per_rank": rounds, "cube_max_rel_diff": rel,
+                     "planted": planted,
+                     "rank_wall_s": float(res["noncoh/wall_s"]),
+                     "one_process_s": one_s}
+    emit(out)
+    return out
 
 
 STREAM_TRANSPORTS = ("none", "int4", "int2")
@@ -1831,6 +2131,10 @@ def main() -> int:
         b1c = phase_b1c_track(caps)
         rx_b1c = phase_receiver_b1c(caps)
         rx_wb = phase_receiver_b1c_wb(caps)
+        par_ch = phase_parallel_channel(caps)
+        par_t = phase_parallel_time(caps)
+        par_2d = phase_parallel_time2d(caps)
+        phase_parallel_acq(caps)
         # last: its profiler may leave the driver slower for later phases
         pre = phase_prefix()
     finally:
@@ -1866,7 +2170,14 @@ def main() -> int:
                 stream["none"]["launches"]["track_fused"],
             "b2a_iq8_track_complex64": trk_iq["launches"]["track_fused"],
             "b2a_iq8_e2e_receiver_complex64":
-                rx_iq["kernel_launches"]["track_fused"]},
+                rx_iq["kernel_launches"]["track_fused"],
+            # summed over the ranks, all on this one card
+            "b2a_channel_fanout_2ranks": sum(
+                par_ch["parallel_channel_b2a_12ch"]["k1_launches_by_rank"]),
+            "b2a_channel_fanout_nccl_1rank": sum(
+                par_ch["parallel_nccl_world1"]["k1_launches_by_rank"]),
+            "b2a_time_sharded_2ranks": sum(par_t["k1_launches_by_rank"]),
+            "b1c_wb_time2d_4ranks": sum(par_2d["k1_launches_by_rank"])},
         "max_abs_err": max(
             [small["max_abs_err"], full["max_abs_err"],
              rx["cmp"]["max_abs_err"], rx_b1c["cmp"]["max_abs_err"],
@@ -1874,7 +2185,9 @@ def main() -> int:
             + [k1_b1c[c]["max_abs_err"] for c in k1_b1c if c != "phase"]
             + [k1_iq[label][k]["max_abs_err"]
                for label in ("b2a_12ch", "b1c_wb_preset_10ch")
-               for k in K1_KINDS[1:]]),
+               for k in K1_KINDS[1:]]
+            + [e for r in (*par_ch.values(), par_t, par_2d)
+               for e in r["k1_check_abs_err_by_rank"]]),
         # one W = 20 block of the preset (wideband composite, 10 channels)
         # at the chosen cluster size, and at one block per channel
         "cluster": k1["cluster"],

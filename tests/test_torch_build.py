@@ -4,8 +4,10 @@ before any is waited on, then one link of every object into the
 library."""
 import json
 import os
+import pathlib
 import stat
 import sys
+import time
 
 import pytest
 
@@ -74,3 +76,32 @@ def test_a_failed_compile_raises(fake_nvcc, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="refused"):
         _build.build(so)
     assert not so.exists()
+
+
+def test_processes_that_start_together_build_once(fake_nvcc, tmp_path):
+    """Two processes (the ranks of a parallel run) ask for the library at
+    once: one builds it under the file lock, the other waits and finds
+    it built.  A gate file lines up their first calls."""
+    import subprocess
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    gate = tmp_path / "go"
+    code = ("import pathlib, sys, time\n"
+            "from bds3_tpu_torch import _build\n"
+            "_build.BUILD_DIR = pathlib.Path(sys.argv[1])\n"
+            "while not pathlib.Path(sys.argv[2]).exists():\n"
+            "    time.sleep(0.005)\n"
+            "print(_build.ensure_built())\n")
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(tmp_path / "build"), str(gate)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for _ in range(2)]
+    time.sleep(1.0)      # both started and waiting at the gate
+    gate.touch()
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [e for _, e in outs]
+    paths = {o.strip() for o, _ in outs}
+    assert len(paths) == 1 and pathlib.Path(paths.pop()).exists()
+    sources = list(_build.CSRC.glob("*.cu"))
+    assert len(_calls(fake_nvcc)) == len(sources) + 1   # one build

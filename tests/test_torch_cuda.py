@@ -511,3 +511,35 @@ def test_streamed_track_matches_resident(cuda, tmp_path, transport):
     for n in res.outputs:
         np.testing.assert_array_equal(got.outputs[n], res.outputs[n],
                                       err_msg=n)
+
+
+def test_parallel_ranks_on_one_card_equal_one_rank(cuda, tmp_path):
+    """Channel fan-out (2 ranks x 2 channels) and time-sharded tracking (2
+    ranks, 2 groups) with both ranks on this card over gloo: equal to
+    the one-process track(), K1 launched in every rank and held to its
+    plain version there."""
+    from bds3_tpu_torch.parallel import worker
+
+    s = b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6)
+    sig = synthesize_if(s, SATS, n_ms=90.0, noise_std=1.0, seed=6)
+    inits = _inits(s) * 2
+    common = dict(settings="s", signal="sig", inits="inits", n_devices=2,
+                  check_k1=True)
+    cases = [dict(name="channel", mode="channel", epochs=30,
+                  epochs_per_block=30, **common),
+             dict(name="time", mode="time", epochs=60, n_groups=2,
+                  **common)]
+    worker.write_job(tmp_path / "job.npz", cases, {"s": s},
+                     {"sig": sig, "inits": worker.inits_to_array(inits)})
+    res = worker.run_job(2, tmp_path / "job.npz", tmp_path / "out.npz",
+                         device="cuda:0", store=str(tmp_path / "store"),
+                         timeout=600)
+    for name, n_ep, per_block in (("channel", 30, 30), ("time", 60, 30)):
+        ref = driver.track(sig, s, inits, n_epochs=n_ep,
+                           epochs_per_block=per_block, device=cuda)
+        for k, v in ref.outputs.items():
+            np.testing.assert_array_equal(res[f"{name}/{k}"], v, err_msg=k)
+        assert (res[f"{name}/k1_launches"] > 0).all()
+        assert res[f"{name}/k1_check_blksize_equal"].all()
+        assert res[f"{name}/k1_check_cursor_equal"].all()
+        assert (res[f"{name}/k1_check_scaled_err"] <= 1e-3).all()

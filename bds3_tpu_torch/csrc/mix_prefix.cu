@@ -8,6 +8,7 @@
 // prefix.py:mix_prefix.  For channel c and sample j < n of the epoch window
 // that starts at the absolute capture index cursor[c]:
 //   x   = capture[cursor[c] + j] if j < blk[c] and inside the capture, else 0
+//         (an int8 or a float32 sample, read as float32)
 //   cyc = mod1(base[c, j / 4096] + (j % 4096) * slope[c])
 //   i   = x * cos(2 pi cyc),  q = -(x * sin(2 pi cyc))
 //   P[c, x] = sum_{j < x} (i, q) for x = 0 .. n  (P[c, n] is the total).
@@ -48,10 +49,19 @@
 // calls at once) traps, an error rather than a hang.  No library scan
 // (cub, thrust, torch.cumsum) is used.
 //
+// The capture kinds.  The reference casts any real window to float32
+// (pallas_prefix.py:62), so the kernel is a template on the load of a
+// sample (struct Sample): an int8 instance and a float32 one, chosen by a
+// kind code as K1's are (track_fused.cu, struct Capture).  Everything after
+// the load is shared, so the float32 instance on an int8 capture's values
+// gives the int8 instance's P bit for bit.  Complex input has no instance:
+// the reference's kernel takes real windows only.
+//
 // What bounds it.  Per sample one accurate sincosf and a few adds; the
-// int8 capture is read once and P (8 bytes a sample) written once: 9 bytes
-// a sample, ~89 MB for one B1C epoch of 10 x 993,754 samples (2,430
-// blocks): 26 us at an H100 SXM's 3.35 TB/s (700 W).  What holds it back
+// capture is read once (1 byte a sample in int8, 4 in float32) and P
+// (8 bytes a sample) written once: 9 bytes a sample in int8, ~89 MB for
+// one B1C epoch of 10 x 993,754 samples (2,430 blocks): 26 us at an H100
+// SXM's 3.35 TB/s (700 W); 12 bytes and 35 us in float32.  What holds it back
 // is the look-back: each block waits for the slowest earlier tile of its
 // channel while it holds one of the SM's 4 block slots (see PERF.md).
 //
@@ -138,8 +148,31 @@ __device__ __forceinline__ float wait_total(const unsigned long long* p,
   return __uint_as_float((unsigned)w);
 }
 
+// The capture kinds (prefix.py:CAPTURE_KINDS), each the load of one real
+// sample as float32.
+#define CAPTURE_INT8 0
+#define CAPTURE_FLOAT32 1
+
+template <int KIND> struct Sample;
+
+template <> struct Sample<CAPTURE_INT8> {
+  using T = int8_t;
+  static __device__ __forceinline__ float load(const T* cap, long long g) {
+    return (float)cap[g];
+  }
+};
+
+template <> struct Sample<CAPTURE_FLOAT32> {
+  using T = float;
+  static __device__ __forceinline__ float load(const T* cap, long long g) {
+    return cap[g];
+  }
+};
+
+template <int KIND>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-mix_prefix_kernel(const int8_t* __restrict__ capture, long long total,
+mix_prefix_kernel(const typename Sample<KIND>::T* __restrict__ capture,
+                  long long total,
                   const long long* __restrict__ cursor,  // (C,)
                   const long long* __restrict__ blk,     // (C,)
                   const float* __restrict__ base,        // (C, T)
@@ -198,7 +231,8 @@ mix_prefix_kernel(const int8_t* __restrict__ capture, long long total,
     const int lin = tid * PER_THREAD + k;
     const long long j = j0 + k, g = cur + j;
     const float x =
-        (j < lim && g >= 0 && g < total) ? (float)capture[g] : 0.0f;
+        (j < lim && g >= 0 && g < total) ? Sample<KIND>::load(capture, g)
+                                         : 0.0f;
     const float cyc = mod1(b + (float)lin * sl);
     float sn, cs;
     sincosf(two_pi * cyc, &sn, &cs);
@@ -301,22 +335,41 @@ mix_prefix_kernel(const int8_t* __restrict__ capture, long long total,
   }
 }
 
-// Host entry point, called through ctypes.  One launch on `stream`, not
-// synchronized; returns cudaGetLastError() (0 on success).  scratch is
-// prefix.buffers' int64 words, at least 2 + 2 * C * ceil(n / 4096), zero
-// before the first call and left ready for the next by each call.
+// Host entry point, called through ctypes.  One launch of the instance of
+// capture kind `kind` on `stream`, not synchronized; returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for an
+// unknown kind.  scratch is prefix.buffers' int64 words, at least
+// 2 + 2 * C * ceil(n / 4096), zero before the first call and left ready
+// for the next by each call.
+template <int KIND>
+static int launch(const void* capture, long long total, const void* cursor,
+                  const void* blk, const void* base, const void* slope,
+                  int n_channels, int n, void* p_i, void* p_q,
+                  void* scratch, void* stream) {
+  const int n_tiles = (n + SPLIT - 1) / SPLIT;
+  const long long n_blocks = (long long)n_tiles * n_channels;
+  mix_prefix_kernel<KIND><<<(unsigned)n_blocks, THREADS, 0,
+                            (cudaStream_t)stream>>>(
+      (const typename Sample<KIND>::T*)capture, total,
+      (const long long*)cursor, (const long long*)blk, (const float*)base,
+      (const float*)slope, n, n_tiles, n_channels, (float*)p_i, (float*)p_q,
+      (unsigned long long*)scratch);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int bds3_mix_prefix(const void* capture, long long total,
-                               const void* cursor, const void* blk,
+                               int kind, const void* cursor, const void* blk,
                                const void* base, const void* slope,
                                int n_channels, int n, void* p_i, void* p_q,
                                void* scratch, void* stream) {
-  const int n_tiles = (n + SPLIT - 1) / SPLIT;
-  const long long n_blocks = (long long)n_tiles * n_channels;
-  mix_prefix_kernel<<<(unsigned)n_blocks, THREADS, 0,
-                      (cudaStream_t)stream>>>(
-      (const int8_t*)capture, total, (const long long*)cursor,
-      (const long long*)blk, (const float*)base, (const float*)slope, n,
-      n_tiles, n_channels, (float*)p_i, (float*)p_q,
-      (unsigned long long*)scratch);
-  return (int)cudaGetLastError();
+  switch (kind) {
+#define LAUNCH(K)                                                          \
+  case K:                                                                  \
+    return launch<K>(capture, total, cursor, blk, base, slope, n_channels, \
+                     n, p_i, p_q, scratch, stream);
+    LAUNCH(CAPTURE_INT8)
+    LAUNCH(CAPTURE_FLOAT32)
+#undef LAUNCH
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -242,10 +242,11 @@ def choose_correlator(cfg: TrackConfig, correlator: str = "auto",
     fused kernel on its chip (bds3_tpu/track/driver.py:211-222); a config
     the kernel cannot hold raises, it is not sent elsewhere.  The device
     then picks kernel or plain version, so the CPU runs the path the card
-    runs.  "bucket_pallas" takes real int8 captures only, as its kernel
-    does: the reference's mixes complex ones in XLA instead without a word
-    (bds3_tpu/track/scan.py:378), and the port runs no kernel path whose
-    kernel would not launch."""
+    runs.  "bucket_pallas" takes real int8 and float32 captures, the two
+    its kernel reads (prefix.CAPTURE_KINDS), and raises on any other
+    dtype and on complex input: the reference's mixes complex ones in XLA
+    instead without a word (bds3_tpu/track/scan.py:378), and the port runs
+    no kernel path whose kernel would not launch."""
     if correlator == "auto":
         correlator = "fused"
     if correlator not in BLOCK_FNS:
@@ -255,10 +256,12 @@ def choose_correlator(cfg: TrackConfig, correlator: str = "auto",
         raise NotImplementedError(
             f"the CUDA tracking kernel does not take {describe(cfg)} yet")
     if correlator == "bucket_pallas" and (
-            cfg.complex_input or np.dtype(dtype) != np.int8):
+            cfg.complex_input
+            or np.dtype(dtype) not in (np.dtype(np.int8),
+                                       np.dtype(np.float32))):
         raise NotImplementedError(
-            f"bucket_pallas's mix+prefix kernel reads real int8 captures "
-            f"only, not {describe(cfg)} in {np.dtype(dtype)} (the "
+            f"bucket_pallas's mix+prefix kernel reads real int8 or float32 "
+            f"captures only, not {describe(cfg)} in {np.dtype(dtype)} (the "
             "reference's takes real input only: bds3_tpu/track/scan.py:378);"
             " use 'fused', 'gather' or 'bucket'")
     return correlator

@@ -5,7 +5,7 @@ For channel c and sample j of an epoch window of n samples that starts at
 the absolute capture index cursor[c]:
 
     x   = capture[cursor[c] + j]  if j < blk[c] and the index lies inside
-          the capture, else 0
+          the capture, else 0  (an int8 or float32 sample, as float32)
     cyc = mod1(base[c, j // 4096] + (j % 4096) * slope[c])   (floor-mod)
     i   = x * cos(2 pi cyc),   q = -(x * sin(2 pi cyc))
     P_i[c, x] = sum_{j < x} i,   P_q[c, x] = sum_{j < x} q,   x = 0 .. n
@@ -17,7 +17,12 @@ bucket correlator's boundaries past the epoch end read it.
 
 `mix_prefix` runs the CUDA kernel on CUDA tensors and raises on anything
 it does not take; on CPU tensors it runs `mix_prefix_reference`, its
-plain PyTorch version.  It never falls back.
+plain PyTorch version.  It never falls back.  The kernel has an instance
+for each real capture dtype the reference's kernel reads (it casts the
+window to float32, `pallas_prefix.py:62`): int8 and float32, chosen by
+`CAPTURE_KINDS`.  The two share everything after the load, so the
+float32 instance on an int8 capture's values gives the int8 result bit
+for bit.
 
 The kernel is one launch: each block mixes and scans one 4096-sample
 tile, publishes the tile's total, sums the totals of its channel's
@@ -44,6 +49,9 @@ KERNEL_NAME = "mix_prefix_cuda"
 SOURCE = "bds3_tpu_torch/csrc/mix_prefix.cu"
 REPLACES = "bds3_tpu/track/pallas_prefix.py:92"   # the TPU kernel
 TWO_PI = float(np.float32(2.0 * np.pi))
+# the capture dtypes the kernel reads, and the code of each one's instance
+# (csrc/mix_prefix.cu, CAPTURE_INT8 and CAPTURE_FLOAT32)
+CAPTURE_KINDS = {torch.int8: 0, torch.float32: 1}
 
 
 def n_tiles(n: int) -> int:
@@ -155,7 +163,7 @@ def _entry():
 
     fn = library().bds3_mix_prefix
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
                    + [ctypes.c_void_p] * 4
                    + [ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 4)
@@ -169,7 +177,7 @@ def mix_prefix(capture: torch.Tensor, cursor: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exclusive I/Q prefixes of C mixed, masked n-sample windows.
 
-    capture (N,) int8; cursor, blk (C,) int64; base (C, n_tiles(n))
+    capture (N,) int8 or float32; cursor, blk (C,) int64; base (C, n_tiles(n))
     float32; slope (C,) float32.  Returns (P_i, P_q), each (C, n + 1)
     float32, written into `out` when it is given; `scratch` is where the
     kernel's blocks publish their tiles' totals.  Both are as `buffers`
@@ -187,7 +195,10 @@ def mix_prefix(capture: torch.Tensor, cursor: torch.Tensor,
 
     if not 0 < n < 2**31 - 1:
         raise ValueError(f"window length {n} out of range")
-    check_tensor("capture", capture, torch.int8, (capture.shape[0],), dev)
+    if capture.dtype not in CAPTURE_KINDS:
+        raise TypeError(f"capture has dtype {capture.dtype}, expected one "
+                        f"of {list(CAPTURE_KINDS)}")
+    check_tensor("capture", capture, capture.dtype, (capture.shape[0],), dev)
     check_tensor("cursor", cursor, torch.int64, (c,), dev)
     check_tensor("blk", blk, torch.int64, (c,), dev)
     check_tensor("base", base, torch.float32, (c, n_tiles(n)), dev)
@@ -200,7 +211,8 @@ def mix_prefix(capture: torch.Tensor, cursor: torch.Tensor,
     launch = _entry()
     with torch.cuda.device(dev):
         err = launch(
-            capture.data_ptr(), capture.shape[0], cursor.data_ptr(),
+            capture.data_ptr(), capture.shape[0],
+            CAPTURE_KINDS[capture.dtype], cursor.data_ptr(),
             blk.data_ptr(), base.data_ptr(), slope.data_ptr(), c, n,
             out[0].data_ptr(), out[1].data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

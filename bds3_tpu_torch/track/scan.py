@@ -26,7 +26,8 @@ the BOC(6,1) pilot at 12 table entries per chip, with its own coarse
 code-phase table and, in the bucket path, its own chip boundaries.
 
 The capture is real (int8 or float32) or complex64 (`_mix`); the bucket
-path's `pallas_prefix` takes real int8 only, as its kernel does.
+path's `pallas_prefix` takes real int8 and float32 only, as its kernel
+does.
 Samples are read at `cursor + j` straight from the capture: the cursor is
 an absolute int64 sample index, so neither the reference's per-block
 shift nor its pre-gathered, 128-aligned windows (which exist for the

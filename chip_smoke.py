@@ -56,13 +56,18 @@ port's main path through its public entry points:
              scratch reused by every shape and cursor, bit for bit.
              Times with output and scratch made once and made per call,
              the device's own time (torch.profiler), the plain version's
-             and a scan-only torch.cumsum (less work than K2).
+             and a scan-only torch.cumsum (less work than K2).  K2's
+             float32 instance at every shape and edge window: on
+             capture.float() equal to the int8 instance bit for bit, on
+             samples with fractions within 5e-4 of its plain version and
+             the oracle; its times and its byte bound (4 bytes a sample).
   6. bucket  one 20-epoch bucket_pallas block from the same state, B2a
              (12 channels) and B1C narrowband (10 channels) at 99.375 Msps:
              blksize and cursors equal, correlators within 1e-3 of
              |a|.mean()+1 of the same path through the kernel's plain
              version, and within 2e-2 of the plain bucket path (another
-             rounding of the carrier phase).
+             rounding of the carrier phase); on capture.float() (K2's
+             float32 instance) rows and state equal to the int8 block's.
   7. B1C kernel  fused_track_block against track_block_reference at the
              B1C preset's rate (99.375 Msps), 10 channels over the 4
              satellites, one 20-epoch block: narrowband, and wideband in
@@ -78,8 +83,9 @@ port's main path through its public entry points:
   9. B1C tracking  the preset (wideband, composite), 10 channels,
              200 epochs through track() "auto": K1 launched, 10/10
              locked, real-time factor.  Narrowband through "auto" (K1),
-             "bucket_pallas" (the mix+prefix kernel) and plain "bucket":
-             10/10 locked in each.
+             "bucket_pallas" (the mix+prefix kernel), "bucket_pallas" on
+             capture.float() (its float32 instance: every output equal to
+             the int8 run's) and plain "bucket": 10/10 locked in each.
  10. B1C receivers  run_receiver on the 6 Msps, 26 s, 5-satellite
              narrowband scenario (seeds 5 and 2), then on the bench's
              wideband one (33.125 Msps, IF fs/4, 26 s, "split" blend,
@@ -128,6 +134,18 @@ port's main path through its public entry points:
              time-sharded non-coherent search (4 rounds a rank, a
              63 x 25 x 99,375 cube) within 1e-5 of one rank's, the 4
              satellites at their bins.
+
+ 14. drivers  (before parallel) the port's drivers of the JAX paths, each
+             through its main on the card at its default length: the
+             examples' b2a_pipeline_demo (6.5 s at 99.375 Msps) and
+             b1c_pipeline_demo (1 s, wideband), the tools'
+             validate_b1c_chain (40 s at 6 Msps), streaming_demo (at 5 s
+             here, two 2000-epoch blocks; 49 s by default) and
+             profile_trace (0.2 s, in a process of its own);
+             debug_pvt's run on receiver_e2e's
+             cached capture.  Each must print its PASS line (profile_trace
+             its "traced" line, with a trace file) and launch K1; each
+             one's wall time and launches.
 
 With `--profile` it runs only the build and then torch.profiler over
 short runs of the tracking cells (see phase_profile), one JSON line each,
@@ -1032,13 +1050,38 @@ def prefix_inputs(n_ch: int, n: int) -> tuple[np.ndarray, ...]:
 
 
 def prefix_bound(capture, cursor, blk, base, n: int) -> tuple[float, str]:
-    """K2's bound: each valid int8 sample read once, the two float32 prefix
-    rows (n + 1 each) written once, the phase tables read; 12 operations a
-    sample (the carrier as in track_fused_bound's 10, and one add for each
-    prefix)."""
+    """K2's bound: each valid sample read once (1 byte in int8, 4 in
+    float32), the two float32 prefix rows (n + 1 each) written once, the
+    phase tables read; 12 operations a sample (the carrier as in
+    track_fused_bound's 10, and one add for each prefix)."""
     valid = np.clip(np.minimum(blk, n), 0, len(capture) - cursor).sum()
     return roofline_ms(12.0 * valid,
-                       valid + 2 * len(cursor) * (n + 1) * 4 + base.nbytes)
+                       valid * capture.itemsize + 2 * len(cursor) * (n + 1) * 4
+                       + base.nbytes)
+
+
+def with_fractions(capture: np.ndarray, seed: int = 8) -> np.ndarray:
+    """K2's float32 input: the int8 samples plus a uniform fraction in
+    [-0.5, 0.5), the capture of a front end that does not quantize."""
+    frac = np.random.default_rng(seed).random(len(capture)) - 0.5
+    return (capture + frac).astype(np.float32)
+
+
+def _prefix_float32(label: str, host, n: int, chk: dict) -> dict:
+    """K2's float32 instance at one shape: on the int8 capture's values as
+    float32 it must give the int8 instance's result (chk, _prefix_check's)
+    bit for bit; on with_fractions samples _prefix_check holds it to its
+    plain version and the oracle.  Returns that check."""
+    from bds3_tpu_torch.track import prefix
+
+    args = chk["args"]
+    same = prefix.mix_prefix(args[0].float(), *args[1:])
+    if not all(np.array_equal(t.cpu().numpy(), want)
+               for t, want in zip(same, chk["result"])):
+        raise AssertionError(f"mix_prefix {label}: the float32 instance on "
+                             "capture.float() differs from the int8 one")
+    return _prefix_check(f"{label} float32",
+                         (with_fractions(host[0]),) + tuple(host[1:]), n)
 
 
 def device_time(fn, reps: int = 20) -> tuple[float | None, float]:
@@ -1139,7 +1182,13 @@ def phase_prefix() -> dict:
     less work than K2 (no mix and no carry; it reads 4 bytes a sample and
     component), not a call that computes the same function; then, after
     all of them, the device's own time under the profiler.  main() runs
-    this phase last."""
+    this phase last.
+
+    K2's float32 instance goes through the same at every shape and edge
+    window (_prefix_float32: bit for bit the int8 instance on
+    capture.float(), within PREFIX_TOL on samples with fractions), with
+    its times and its byte bound (4 bytes a sample read) at each shape
+    under "float32"."""
     import functools
 
     import torch
@@ -1155,6 +1204,7 @@ def phase_prefix() -> dict:
     shapes = [(label, n_ch, make_track_config(s).n_max)
               for label, s, n_ch in prefix_shapes()]
     runs = {}                         # each shape's call, buffers made once
+    runs32 = {}                       # the same, float32 instance
     shared = torch.zeros(max([prefix.scratch_words(c, n)
                               for _, c, n in shapes]
                              + [prefix.scratch_words(len(cursor), n)
@@ -1185,10 +1235,23 @@ def phase_prefix() -> dict:
         scan_ms = time_call(lambda: torch.cumsum(mixed, 1, out=scanned),
                             reps=20)
         bound_ms, bound_by = prefix_bound(*host[:4], n)
+        chk32 = _prefix_float32(label, host, n, chk)
+        args32 = chk32["args"]
+        bufs32, scratch32 = prefix.buffers(n_ch, n, dev)
+        runs32[label] = functools.partial(prefix.mix_prefix, *args32,
+                                          out=bufs32, scratch=scratch32)
+        bound32_ms, bound32_by = prefix_bound(with_fractions(host[0]),
+                                              *host[1:4], n)
+        f32 = {**chk32["err"], "bound_ms": bound32_ms,
+               "bound_by": bound32_by,
+               "kernel_ms": time_call(runs32[label], reps=20),
+               "plain_ms": time_call(
+                   lambda: prefix.mix_prefix_reference(*args32), reps=5)}
         out[label] = {"channels": n_ch, "n": n, **chk["err"],
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "kernel_ms": kernel_ms, "kernel_ms_alloc": alloc_ms,
                       "plain_ms": plain_ms, "scan_only_ms": scan_ms,
+                      "float32": f32,
                       "seconds": time.perf_counter() - t0}
         del mixed, scanned
     edges = {}
@@ -1208,19 +1271,22 @@ def phase_prefix() -> dict:
         if np.stack(got)[:, ~reads].any():
             raise AssertionError(f"mix_prefix {label}: a window that reads "
                                  "no sample is not all zeros")
-        edges[label] = {"n": n, **chk["err"]}
+        edges[label] = {"n": n, **chk["err"],
+                        "float32": _prefix_float32(label, host, n,
+                                                   chk)["err"]}
     out["edges"] = edges
     # the device's own time, after every CUDA-event time of the phase
-    for label, run in runs.items():
+    for row, run in [(out[label], r) for label, r in runs.items()] \
+            + [(out[label]["float32"], r) for label, r in runs32.items()]:
         device_ms, kernels = device_time(run)
-        busy = device_ms if device_ms is not None else out[label]["kernel_ms"]
-        out[label].update(
+        busy = device_ms if device_ms is not None else row["kernel_ms"]
+        row.update(
             device_ms=device_ms, kernels_per_call=kernels,
             device_ms_source=("profiler" if device_ms is not None
                               else "cuda_events"),
-            bounded_by=("host" if out[label]["kernel_ms"] > 1.2 * busy
+            bounded_by=("host" if row["kernel_ms"] > 1.2 * busy
                         else "device"),
-            share_of_bound=out[label]["bound_ms"] / busy)
+            share_of_bound=row["bound_ms"] / busy)
     emit(out)
     return out
 
@@ -1231,9 +1297,12 @@ def phase_bucket_compare(caps: Captures) -> dict:
     kernel's plain version (TOL), and against the plain bucket block, whose
     per-sample carrier phase rounds differently from the per-tile phase
     (BUCKET_TOL, the tolerance between the reference's own bucket and
-    bucket_pallas paths, tests/test_correlator_equiv.py:52)."""
+    bucket_pallas paths, tests/test_correlator_equiv.py:52).  The same
+    block on capture.float() (K2's float32 instance) must give the int8
+    block's rows and state bit for bit."""
     import torch
 
+    from bds3_tpu_torch.track import prefix
     from bds3_tpu_torch.track.driver import (
         BLOCK_FNS, as_capture, setup_tracking)
 
@@ -1250,7 +1319,20 @@ def phase_bucket_compare(caps: Captures) -> dict:
         out[f"{label}_vs_bucket"] = compare_block(
             setup.cfg, capture, setup, f"{label} vs bucket",
             "bucket_pallas", BLOCK_FNS["bucket"], tol=BUCKET_TOL)
-        del capture
+        before = prefix.mix_prefix.launches
+        runs = [BLOCK_FNS["bucket_pallas"](setup.cfg, cap, setup.tables,
+                                           setup.consts, setup.state)
+                for cap in (capture, capture.float())]
+        torch.cuda.synchronize()
+        (st_i, rows_i), (st_f, rows_f) = runs
+        if not (torch.equal(rows_f, rows_i)
+                and all(torch.equal(a, b) for a, b in zip(st_f, st_i))):
+            raise AssertionError(f"bucket_pallas {label}: the float32 "
+                                 "capture's block differs from the int8 one")
+        out[f"{label}_float32"] = {
+            "equal_to_int8": True,
+            "k2_launches": prefix.mix_prefix.launches - before}
+        del capture, runs
     emit(out)
     return out
 
@@ -1353,8 +1435,10 @@ def phase_b1c_track(caps: Captures) -> dict:
     """The B1C preset (wideband, composite blend) at 99.375 Msps, 10
     channels over the 4 satellites, 200 epochs (2 s) through track() with
     "auto" (K1); then narrowband through "auto" (K1), through
-    "bucket_pallas" (the prefix-sum path with K2) and through the plain
-    "bucket" path.  Every run must lock 10/10."""
+    "bucket_pallas" (the prefix-sum path with K2), through "bucket_pallas"
+    on capture.float() (K2's float32 instance: every output and epoch
+    end must equal the int8 run's) and through the plain "bucket" path.
+    Every run must lock 10/10."""
     import torch
 
     from bds3_tpu_torch.track import fused, prefix
@@ -1367,29 +1451,44 @@ def phase_b1c_track(caps: Captures) -> dict:
     outs = {}
     for phase, s, runs in (
             ("track_b1c_wb_99msps_10ch", b1c_preset_settings(),
-             (("auto", fused.KERNEL_NAME, "track_fused"),)),
+             (("auto", "auto", fused.KERNEL_NAME, "track_fused"),)),
             ("track_b1c_nb_99msps_10ch", b1c_full_settings(),
-             (("auto", fused.KERNEL_NAME, "track_fused"),
-              ("bucket_pallas", prefix.KERNEL_NAME, "mix_prefix"),
-              ("bucket", "bucket", None)))):
+             (("auto", "auto", fused.KERNEL_NAME, "track_fused"),
+              ("bucket_pallas", "bucket_pallas", prefix.KERNEL_NAME,
+               "mix_prefix"),
+              ("bucket_pallas_float32", "bucket_pallas", prefix.KERNEL_NAME,
+               "mix_prefix"),
+              ("bucket", "bucket", "bucket", None)))):
         inits = make_inits(s, FULL_SATS, 10)
         out = {"phase": phase, "epochs": n_ep, "channels": 10}
-        for correlator, ran, kernel in runs:
-            trk, cold, warm, launches = _timed_track(capture, s, inits, n_ep,
+        results = {}
+        for label, correlator, ran, kernel in runs:
+            cap = capture.float() if label.endswith("float32") else capture
+            trk, cold, warm, launches = _timed_track(cap, s, inits, n_ep,
                                                      correlator)
+            del cap
             if trk.correlator != ran or (kernel and launches[kernel] <= 0):
                 raise AssertionError(
-                    f"{phase} {correlator}: ran {trk.correlator!r}, "
+                    f"{phase} {label}: ran {trk.correlator!r}, "
                     f"launches {launches}")
             locked = lock_count(trk, 100)
             if locked != 10:
-                raise AssertionError(f"{phase} {correlator}: {locked}/10 "
+                raise AssertionError(f"{phase} {label}: {locked}/10 "
                                      "channels locked")
-            out[correlator] = {
+            results[label] = trk
+            out[label] = {
                 "correlator": trk.correlator, "locked": locked,
                 "launches": launches, "cold_s": cold, "warm_s": warm,
                 "ms_per_epoch": warm / n_ep * 1e3,
                 "realtime_factor": seconds_tracked / warm}
+        if "bucket_pallas_float32" in results:
+            f32, i8 = results["bucket_pallas_float32"], results["bucket_pallas"]
+            if not (np.array_equal(f32.absolute_sample, i8.absolute_sample)
+                    and all(np.array_equal(f32.outputs[k], v)
+                            for k, v in i8.outputs.items())):
+                raise AssertionError(f"{phase}: bucket_pallas on the float32 "
+                                     "capture differs from the int8 run")
+            out["bucket_pallas_float32"]["equal_to_int8"] = True
         emit(out)
         outs[phase] = out
     return outs
@@ -1451,6 +1550,115 @@ def phase_receiver_b1c_wb(caps: Captures) -> dict:
     emit({"phase": "kernel_vs_plain_b1c_wb_receiver_shapes", **cmp})
     del capture
     return {**out, "cmp": cmp}
+
+
+# --- the drivers of the JAX paths -------------------------------------------
+
+DRIVER_STREAM_S = 5   # streaming_demo's seconds: 2 blocks (49 s by default)
+
+
+def _drive(fn) -> tuple[float, dict, list[str]]:
+    """fn() (a driver's main or run) with its standard output captured and
+    echoed to standard error, the launch counts set to 0 just before it:
+    (wall s, its launches, its output lines)."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        sys.stderr.write(buf.getvalue())
+    return time.perf_counter() - t0, _launch_counts(), \
+        buf.getvalue().splitlines()
+
+
+def _drive_in_child(module: str, argv: list[str]) -> tuple[float, dict,
+                                                          list[str]]:
+    """A driver's main(argv) in a process of its own (profile_trace: a
+    torch.profiler run slows later launches of its process, and
+    prefix_vs_plain times them later in this one): (wall s, its launches,
+    its output lines)."""
+    code = (
+        "import json, sys\n"
+        f"from {module} import main\n"
+        "from bds3_tpu_torch.track import prefix\n"
+        "from bds3_tpu_torch.track.fused import fused_track_block\n"
+        f"rc = main({argv!r})\n"
+        "print(json.dumps({'track_fused': fused_track_block.launches, "
+        "'mix_prefix': prefix.mix_prefix.launches}))\n"
+        "sys.exit(rc)\n")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    wall = time.perf_counter() - t0
+    sys.stderr.write(out.stdout + out.stderr[-3000:])
+    if out.returncode != 0:
+        raise AssertionError(f"{module} exited with {out.returncode}")
+    lines = out.stdout.splitlines()
+    return wall, json.loads(lines[-1]), lines[:-1]
+
+
+def phase_drivers(caps: Captures) -> dict:
+    """The port's drivers of the JAX paths on the card, each through its
+    main at its default length (streaming_demo at DRIVER_STREAM_S), but
+    debug_pvt, whose scenario is receiver_e2e's: its run() gets that
+    cached capture.  Each must print its PASS line (profile_trace its
+    "traced" line and a trace file) and launch K1; each one's wall time
+    (its capture's rendering included), length and launches, by name."""
+    import torch
+
+    from bds3_tpu_torch.examples import b1c_pipeline_demo, b2a_pipeline_demo
+    from bds3_tpu_torch.tools import debug_pvt, streaming_demo
+    from bds3_tpu_torch.tools import validate_b1c_chain
+
+    dev = torch.device("cuda")
+    trace_dir = os.path.join(REPO, "bds3_tpu_torch", "_build", "trace")
+    e2e = caps.get("e2e")
+    drivers = (
+        ("b2a_pipeline_demo", "6.5 s at 99.375 Msps, 2 satellites",
+         lambda: _drive(lambda: b2a_pipeline_demo.main([])), "DEMO PASS"),
+        ("b1c_pipeline_demo", "1 s at 99.375 Msps, wideband, 2 satellites",
+         lambda: _drive(lambda: b1c_pipeline_demo.main([])), "DEMO PASS"),
+        ("debug_pvt", "11.5 s at 20 Msps, 5 satellites (receiver_e2e's "
+         "capture)",
+         lambda: _drive(lambda: debug_pvt.run(debug_pvt.settings(), e2e,
+                                              dev)), "PVT DEBUG PASS"),
+        ("validate_b1c_chain", "40 s at 6 Msps, narrowband, 5 satellites",
+         lambda: _drive(lambda: validate_b1c_chain.main([])),
+         "B1C CHAIN PASS"),
+        ("streaming_demo", f"{DRIVER_STREAM_S} s at 99.375 Msps from a file, "
+         "12 channels, 2 blocks",
+         lambda: _drive(lambda: streaming_demo.main([str(DRIVER_STREAM_S)])),
+         "STREAMING DEMO PASS"),
+        ("profile_trace", "0.2 s at 99.375 Msps, 12 channels, 198 epochs",
+         lambda: _drive_in_child("bds3_tpu_torch.tools.profile_trace",
+                                 [trace_dir]),
+         "traced 198 epochs x 12 ch in "),
+    )
+    runs = {}
+    for name, length, drive, want in drivers:
+        wall, launches, lines = drive()
+        hit = [ln for ln in lines if ln.startswith(want)]
+        if not hit:
+            raise AssertionError(f"{name}: no line starting {want!r}")
+        if launches["track_fused"] <= 0:
+            raise AssertionError(f"{name}: K1 was not launched ({launches})")
+        runs[name] = {"length": length, "wall_s": wall,
+                      "k1_launches": launches["track_fused"],
+                      "line": hit[-1]}
+    if "correlator=track_fused_cuda" not in runs["profile_trace"]["line"] \
+            or not os.path.getsize(os.path.join(trace_dir, "trace.json")):
+        raise AssertionError("profile_trace: no trace of the kernel path")
+    emit({"phase": "drivers", **runs})
+    return runs
 
 
 # --- the parallel paths: ranks side by side on one card --------------------
@@ -2131,6 +2339,7 @@ def main() -> int:
         b1c = phase_b1c_track(caps)
         rx_b1c = phase_receiver_b1c(caps)
         rx_wb = phase_receiver_b1c_wb(caps)
+        drv = phase_drivers(caps)
         par_ch = phase_parallel_channel(caps)
         par_t = phase_parallel_time(caps)
         par_2d = phase_parallel_time2d(caps)
@@ -2177,7 +2386,9 @@ def main() -> int:
             "b2a_channel_fanout_nccl_1rank": sum(
                 par_ch["parallel_nccl_world1"]["k1_launches_by_rank"]),
             "b2a_time_sharded_2ranks": sum(par_t["k1_launches_by_rank"]),
-            "b1c_wb_time2d_4ranks": sum(par_2d["k1_launches_by_rank"])},
+            "b1c_wb_time2d_4ranks": sum(par_2d["k1_launches_by_rank"]),
+            **{f"driver_{name}": r["k1_launches"]
+               for name, r in drv.items()}},
         "max_abs_err": max(
             [small["max_abs_err"], full["max_abs_err"],
              rx["cmp"]["max_abs_err"], rx_b1c["cmp"]["max_abs_err"],
@@ -2212,11 +2423,15 @@ def main() -> int:
         "launches": nb["bucket_pallas"]["launches"]["mix_prefix"],
         "launches_by_path": {
             "b1c_nb_track_bucket_pallas":
-                nb["bucket_pallas"]["launches"]["mix_prefix"]},
-        "max_abs_err": max([pre[label]["max_abs_err"]
-                            for label, _, _ in prefix_shapes()]
-                           + [e["max_abs_err"]
-                              for e in pre["edges"].values()]),
+                nb["bucket_pallas"]["launches"]["mix_prefix"],
+            "b1c_nb_track_bucket_pallas_float32":
+                nb["bucket_pallas_float32"]["launches"]["mix_prefix"]},
+        # both instances, at every shape and edge window
+        "max_abs_err": max(
+            r["max_abs_err"]
+            for row in [pre[label] for label, _, _ in prefix_shapes()]
+            + list(pre["edges"].values())
+            for r in (row, row["float32"])),
         # one B1C epoch, 10 channels: back-to-back calls with output and
         # scratch made once; the device's own time beside them
         "ms": k2["kernel_ms"],
@@ -2229,6 +2444,10 @@ def main() -> int:
         # pre-mixed samples does less work (no mix, no carry)
         "library_ms": None,
         "scan_only_ms": k2["scan_only_ms"],
+        # the float32 instance at the same shape, on samples with fractions
+        "float32": {f: k2["float32"][f] for f in (
+            "kernel_ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound", "max_abs_err")},
     }, {
         "name": "mxu_micro",
         "route": "cuda",

@@ -12,6 +12,12 @@ the phase, the port splits it by epoch index, and XLA contracts
 multiply-adds into FMAs; the tolerances are the ones `bds3_tpu` applies
 between its own paths (tests/test_correlator_equiv.py: 2e-2 scaled,
 0.05 Hz).  The B1C receiver against JAX's is in test_torch_receiver.py.
+
+Each case runs on an int8 capture; bucket_pallas also on a real float32
+one (the same synthesis unquantized), which both kernels read as float32
+(JAX's casts the window, pallas_prefix.py:62), at the same tolerances.
+The port's own identity is exact: bucket_pallas on the int8 capture's
+values as float32 gives the int8 run bit for bit.
 """
 import dataclasses
 
@@ -36,27 +42,33 @@ torch.set_num_threads(2)
 P = convert.settings_from_reference
 
 CORRELATORS = ("bucket", "bucket_pallas")
+# (correlator, capture dtype): the int8 cases keep their correlator's id
+CASES = [pytest.param(c, "int8", id=c) for c in CORRELATORS] + [
+    pytest.param("bucket_pallas", "float32", id="bucket_pallas-float32")]
 PROMPTS = ("d_ip", "d_qp", "d_ie", "d_il", "p11_ip", "p11_qp")
 
 
-def _b2a():
-    """The tests/test_correlator_equiv.py setup: 10 Msps, one channel."""
+def _b2a(dtype="int8"):
+    """The tests/test_correlator_equiv.py setup: 10 Msps, one channel; an
+    int8 capture, or the same synthesis unquantized as float32."""
     s = b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6)
     sats = [SatParams(prn=19, doppler_hz=777.0, code_phase_chips=123.0,
                       amplitude=0.9)]
-    return s, sats, synthesize_if(s, sats, n_ms=150.0, noise_std=1.0, seed=6)
+    return s, sats, synthesize_if(s, sats, n_ms=150.0, noise_std=1.0, seed=6,
+                                  quantize=dtype == "int8")
 
 
-def _b1c():
+def _b1c(dtype="int8"):
     """B1C narrowband at 6 Msps (the tests/test_e2e_b1c.py front end), two
-    channels."""
+    channels; int8, or unquantized float32."""
     s = b1c_settings(sampling_freq=6e6, intermediate_freq=1.5e6,
                      track_mode=TrackMode.NARROWBAND, resampling=False)
     sats = [SatParams(prn=19, doppler_hz=777.0, code_phase_chips=123.0,
                       amplitude=1.3),
             SatParams(prn=20, doppler_hz=-1200.0, code_phase_chips=5000.0,
                       amplitude=1.1)]
-    return s, sats, synthesize_if(s, sats, n_ms=700.0, noise_std=2.0, seed=6)
+    return s, sats, synthesize_if(s, sats, n_ms=700.0, noise_std=2.0, seed=6,
+                                  quantize=dtype == "int8")
 
 
 def _init_for(mod, s, sat):
@@ -98,11 +110,12 @@ def _track_both(monkeypatch, correlator, s, sats, sig, n_epochs, epb):
     return ref, port
 
 
-@pytest.mark.parametrize("correlator", CORRELATORS)
-def test_b2a_matches_jax(monkeypatch, correlator):
+@pytest.mark.parametrize("correlator,dtype", CASES)
+def test_b2a_matches_jax(monkeypatch, correlator, dtype):
     """100 epochs in two blocks; each prompt within 2e-2 of its mean|.|+1,
     carrier and code frequency within 0.05 Hz."""
-    s, sats, sig = _b2a()
+    s, sats, sig = _b2a(dtype)
+    assert sig.dtype == np.dtype(dtype)
     ref, port = _track_both(monkeypatch, correlator, s, sats, sig, 100, 50)
     for k in PROMPTS:
         a, b = ref.outputs[k], port.outputs[k]
@@ -113,15 +126,16 @@ def test_b2a_matches_jax(monkeypatch, correlator):
     np.testing.assert_allclose(port.code_freq, ref.code_freq, atol=0.05)
 
 
-@pytest.mark.parametrize("correlator", CORRELATORS)
-def test_b1c_narrowband_matches_jax(monkeypatch, correlator):
+@pytest.mark.parametrize("correlator,dtype", CASES)
+def test_b1c_narrowband_matches_jax(monkeypatch, correlator, dtype):
     """60 epochs in two blocks, 2 channels; both lock.  The prompts are
     scaled by the channel's mean |I|+|Q| + 1 (test_torch_receiver.py's
     scale): a locked B1C channel's Q is ~I/50, and a carrier phase
     difference moves Q by I times that phase, so Q's own mean is no scale
     (with it the reference's own gather and bucket_pallas paths differ by
     3.6e-2 here)."""
-    s, sats, sig = _b1c()
+    s, sats, sig = _b1c(dtype)
+    assert sig.dtype == np.dtype(dtype)
     ref, port = _track_both(monkeypatch, correlator, s, sats, sig, 60, 30)
     for tap in ("d", "p11"):
         pair = (f"{tap}_ip", f"{tap}_qp")
@@ -137,13 +151,13 @@ def test_b1c_narrowband_matches_jax(monkeypatch, correlator):
 
 
 @pytest.mark.parametrize("signal", ["b2a", "b1c"])
-@pytest.mark.parametrize("correlator", CORRELATORS)
-def test_block_matches_jax_scan_block(correlator, signal):
+@pytest.mark.parametrize("correlator,dtype", CASES)
+def test_block_matches_jax_scan_block(correlator, dtype, signal):
     """One block from the same state against the JAX scan step of the same
     correlator.  blksize and the new cursors must be equal; the float
     outputs and the new state within 1e-2 of |a|.mean()+1
     (test_torch_track.py's block tolerance)."""
-    s, sats, sig = _b2a() if signal == "b2a" else _b1c()
+    s, sats, sig = _b2a(dtype) if signal == "b2a" else _b1c(dtype)
     W = 6
     inits = [_init_for(ref_state, s, x) for x in sats]
     cfg = dataclasses.replace(ref_state.make_track_config(s, False, W),
@@ -184,3 +198,23 @@ def test_block_matches_jax_scan_block(correlator, signal):
                                    atol=1e-2 * (np.abs(a).mean() + 1.0),
                                    err_msg=f)
 
+
+
+@pytest.mark.parametrize("signal", ["b2a", "b1c"])
+def test_bucket_pallas_float32_equals_int8(signal):
+    """The port's identity: bucket_pallas on the int8 capture's values as
+    float32 (the kernel's float32 instance on the card, its plain version
+    here) gives the int8 run bit for bit: the two share everything after
+    the load of a sample."""
+    s, sats, sig = _b2a() if signal == "b2a" else _b1c()
+    inits = [_init_for(port_state, s, x) for x in sats]
+    runs = [port_driver.track(capture, P(s), inits, n_epochs=40,
+                              epochs_per_block=20, device="cpu",
+                              correlator="bucket_pallas")
+            for capture in (sig, sig.astype(np.float32))]
+    assert runs[0].correlator == runs[1].correlator == "bucket_pallas"
+    np.testing.assert_array_equal(runs[1].absolute_sample,
+                                  runs[0].absolute_sample)
+    assert sorted(runs[1].outputs) == sorted(runs[0].outputs)
+    for k, v in runs[0].outputs.items():
+        np.testing.assert_array_equal(runs[1].outputs[k], v, err_msg=k)

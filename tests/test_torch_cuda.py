@@ -301,9 +301,41 @@ def test_mix_prefix_matches_plain_version_and_oracle(cuda):
     assert float((k_q - r_q).abs().max()) / scale <= 5e-4
 
 
+def test_mix_prefix_float32_instance(cuda):
+    """K2's float32 instance: on the int8 capture's values as float32 it
+    gives the int8 instance's P bit for bit (the two share everything
+    after the load); on samples with fractions it is within 5e-4 of
+    max|P_i| + 1 of the plain version and of the float64 oracle.  One
+    launch each."""
+    args, _ = _prefix_args(cuda)
+    before = mix_prefix.launches
+    want = mix_prefix(*args)
+    got = mix_prefix(args[0].float(), *args[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    frac = np.random.default_rng(5).random(args[0].shape[0]) - 0.5
+    host = (args[0].cpu().numpy() + frac).astype(np.float32)
+    fargs = (torch.from_numpy(host).to(cuda),) + args[1:]
+    k_i, k_q = mix_prefix(*fargs)
+    assert mix_prefix.launches == before + 3
+    r_i, r_q = mix_prefix_reference(*fargs)
+    torch.cuda.synchronize()
+    o_i, o_q = mix_prefix_float64(host, *(a.cpu().numpy()
+                                          for a in args[1:5]), args[5])
+    scale = np.abs(o_i).max(axis=1, keepdims=True) + 1.0
+    for got_i, got_q in ((k_i, k_q), (r_i, r_q)):
+        assert (np.abs(got_i.cpu().numpy() - o_i) / scale).max() <= 5e-4
+        assert (np.abs(got_q.cpu().numpy() - o_q) / scale).max() <= 5e-4
+    assert float((k_i - r_i).abs().max()) / scale.max() <= 5e-4
+    assert float((k_q - r_q).abs().max()) / scale.max() <= 5e-4
+
+
 def test_mix_prefix_rejects_what_the_kernel_does_not_take(cuda):
     args, _ = _prefix_args(cuda)
     capture, cursor, blk, base, slope, n = args
+    for bad in (capture.to(torch.int16), capture.to(torch.complex64)):
+        with pytest.raises(TypeError):
+            mix_prefix(bad, cursor, blk, base, slope, n)
     with pytest.raises(ValueError):
         mix_prefix(capture, cursor.cpu(), blk, base, slope, n)
     with pytest.raises(TypeError):
@@ -400,7 +432,9 @@ def test_bucket_pallas_block_matches_bucket_block(cuda, mode):
     blksize and cursors, correlators within 1e-3 of |a|.mean()+1.  Against
     the plain bucket path, whose carrier phase is rounded per sample, not
     per tile: the same geometry, and within 2e-2 (the tolerance between the
-    reference's own bucket and bucket_pallas, test_correlator_equiv.py)."""
+    reference's own bucket and bucket_pallas, test_correlator_equiv.py).
+    On the capture's values as float32 (K2's float32 instance) the block
+    is the int8 block bit for bit."""
     cap, setup = _setup(cuda, mode, 30)
     args = (setup.cfg, cap, setup.tables, setup.consts, setup.state)
     before = mix_prefix.launches
@@ -419,6 +453,12 @@ def test_bucket_pallas_block_matches_bucket_block(cuda, mode):
             scale = np.abs(want[n]).mean() + 1.0
             np.testing.assert_allclose(k[n] / scale, want[n] / scale,
                                        atol=tol, err_msg=n)
+    st_f, rows_f = driver.BLOCK_FNS["bucket_pallas"](
+        setup.cfg, cap.float(), setup.tables, setup.consts, setup.state)
+    torch.cuda.synchronize()
+    assert mix_prefix.launches == before + 60
+    assert torch.equal(rows_f, rows_k)
+    assert all(torch.equal(a, b) for a, b in zip(st_f, st_k))
 
 
 def _mxu_check(dev, shape, variant, iters, seed=5, offset=0):

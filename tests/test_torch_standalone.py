@@ -1,6 +1,7 @@
-"""The port stands alone: nothing in bds3_tpu_torch/ or chip_smoke.py
-imports the JAX package, JAX or jaxlib; every module imports with
-bds3_tpu blocked; the host modules it copied (and the native IO runtime's
+"""The port stands alone: nothing in bds3_tpu_torch/ (its drivers in
+examples/ and tools/ included) or chip_smoke.py imports the JAX package,
+JAX or jaxlib; every module imports with bds3_tpu blocked, and every one
+but the plots copy with matplotlib blocked too; the host modules it copied (and the native IO runtime's
 sources) equal their originals but for the import prefix; and its entry
 points refuse the JAX package's Settings, whose enums are of other
 classes."""
@@ -35,7 +36,8 @@ COPIED = (
                                   "ldpc")]
     + [f"pvt/{m}.py" for m in ("__init__", "geodesy", "lsq", "pseudorange",
                                "satpos", "solver")]
-    + ["observe/__init__.py", "observe/cn0.py", "observe/secondary.py"]
+    + ["observe/__init__.py", "observe/cn0.py", "observe/secondary.py",
+       "observe/plots.py"]
     + [f"io/{m}.py" for m in ("__init__", "ifdata", "synth", "scenario",
                               "stream")]
     + ["runtime/__init__.py", "runtime/src/ifio.cpp", "runtime/Makefile"]
@@ -75,6 +77,35 @@ def test_every_module_imports_with_bds3_tpu_blocked():
                          env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert out.returncode == 0, out.stderr[-3000:]
     assert "imported" in out.stdout
+
+
+def test_card_path_imports_without_matplotlib():
+    """The card's machine has no matplotlib: every module of the port but
+    the plots copy, the drivers and chip_smoke.py import with it blocked,
+    and the plots copy is the one that needs it."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PORT.rglob("*.py") if p != PORT / "observe" / "plots.py")
+    code = ("import sys\n"
+            "for m in ('bds3_tpu', 'jax', 'jaxlib', 'matplotlib'):\n"
+            "    sys.modules[m] = None\n"
+            "import importlib\n"
+            f"for m in {modules + ['chip_smoke']!r}:\n"
+            "    importlib.import_module(m)\n"
+            "try:\n"
+            "    import bds3_tpu_torch.observe.plots\n"
+            "except ImportError:\n"
+            "    print('plots need matplotlib')\n"
+            "print('imported', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "plots need matplotlib" in out.stdout
+    assert "imported" in out.stdout
+    assert any(m.startswith("bds3_tpu_torch.examples.") for m in modules)
+    assert any(m.startswith("bds3_tpu_torch.tools.") for m in modules)
 
 
 @pytest.mark.parametrize("rel", COPIED)

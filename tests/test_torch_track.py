@@ -231,22 +231,37 @@ def test_unsupported_capture_raises_on_cuda_request(capture):
 
 
 @pytest.mark.parametrize("capture", [
-    np.zeros(1000, np.complex64), np.zeros(1000, np.float32),
-    np.zeros(1000, np.int16),
+    np.zeros(120_000, np.complex64), np.zeros(120_000, np.float32),
+    np.zeros(120_000, np.int16),
 ], ids=["complex64", "float32", "int16"])
 def test_bucket_pallas_refuses_what_its_kernel_does_not_read(capture):
-    """The mix+prefix kernel reads real int8: bucket_pallas on a complex
-    or float capture raises before any device work (the reference mixes
-    complex input in XLA instead, bds3_tpu/track/scan.py:378); the other
-    paths take them."""
+    """The mix+prefix kernel reads real int8 and float32: bucket_pallas
+    refuses complex input before any device work (the reference mixes it
+    in XLA instead, bds3_tpu/track/scan.py:378), and any other dtype
+    handed to choose_correlator.  A float32 capture is taken and tracked
+    (here through the kernel's plain version); an int16 one is tracked as
+    float32, as every real capture other than int8 is (capture_dtype; the
+    reference casts it so too, bds3_tpu/track/driver.py:333-334).  The
+    other paths take them all."""
     s = P(b2a_settings(**S10))
     init = port_state.ChannelInit(prn=19, acquired_freq=1e6, code_phase=5,
                                   peak_metric=2.0)
-    with pytest.raises(NotImplementedError, match="real int8"):
-        port_driver.track(capture, s, [init], n_epochs=10, device="cuda",
-                          correlator="bucket_pallas")
+    cfg = port_state.make_track_config(s, capture.dtype.kind == "c")
+    if capture.dtype.kind == "c":
+        with pytest.raises(NotImplementedError, match="real int8 or float32"):
+            port_driver.track(capture, s, [init], n_epochs=10, device="cuda",
+                              correlator="bucket_pallas")
+    else:
+        if capture.dtype != np.float32:
+            with pytest.raises(NotImplementedError,
+                               match="real int8 or float32"):
+                port_driver.choose_correlator(cfg, "bucket_pallas",
+                                              capture.dtype)
+        res = port_driver.track(capture, s, [init], n_epochs=10,
+                                epochs_per_block=10, device="cpu",
+                                correlator="bucket_pallas")
+        assert res.correlator == "bucket_pallas" and res.n_epochs == 10
     for ok in ("fused", "gather", "bucket"):
-        cfg = port_state.make_track_config(s, capture.dtype.kind == "c")
         assert port_driver.choose_correlator(cfg, ok, capture.dtype) == ok
 
 

@@ -24,6 +24,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from bds3_tpu_torch.utils.trace import count
+
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -60,7 +62,8 @@ def library_path() -> Path:
 
 def build(so: Path) -> str:
     """Compiles every source into an object in parallel, links them into
-    `so` and returns the compilers' output; raises on a failure."""
+    `so` and returns the compilers' output; raises on a failure.  Each
+    nvcc process started is counted in `build.nvcc_runs`."""
     nvcc = nvcc_path()
     objs = so.with_name(f"{so.stem}.{os.getpid()}.objs")
     objs.mkdir(parents=True, exist_ok=True)
@@ -70,6 +73,7 @@ def build(so: Path) -> str:
         for src in sorted(CSRC.glob("*.cu")):
             objects.append(str(objs / f"{src.stem}.o"))
             cmd = [nvcc, *cflags, "-c", "-o", objects[-1], str(src)]
+            count("build.nvcc_runs")
             jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.PIPE,
                                                text=True)))
@@ -82,6 +86,7 @@ def build(so: Path) -> str:
                                    f"{' '.join(cmd)}\n{err}")
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objects]
+        count("build.nvcc_runs")
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"

@@ -20,6 +20,10 @@ resolve as in the reference.  Above its threshold rate, B1C acquisition
 first band-pass decimates the capture (`acquire.resample`, the branch of
 pcps.py:437-461): on the card with `torch.fft`, on the CPU with the host
 scipy filter, as the reference runs it off its chip.
+
+Under a profiler `acquire`'s stages are spans (`utils/trace.py`):
+`acquire.resample`, then of the decimated window `acquire.coarse`,
+`acquire.second_peak` (B2a) or `acquire.glrt` (B1C), and `acquire.fine`.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from bds3_tpu_torch.signals.sampling import sample_chips_floor
 from bds3_tpu_torch.track.state import check_settings
 from bds3_tpu_torch.utils.device import resolve_device
 from bds3_tpu_torch.utils.phase import carrier_table, phase_tables
+from bds3_tpu_torch.utils.trace import span
 
 
 def _pow2_ceil(n: int) -> int:
@@ -370,11 +375,12 @@ def acquire(signal, settings: Settings, prns=None,
         # bandpass-sampling decimation (acquisition.m:52-124); results are
         # mapped back to the original rate (pcps.py:437-461)
         plan = resample.plan_resample(s)
-        if dev.type == "cpu":
-            low = torch.from_numpy(
-                resample.resample_signal(sig.numpy(), s, plan))
-        else:
-            low = resample.resample_signal_device(sig, s, plan)
+        with span("acquire.resample"):
+            if dev.type == "cpu":
+                low = torch.from_numpy(
+                    resample.resample_signal(sig.numpy(), s, plan))
+            else:
+                low = resample.resample_signal_device(sig, s, plan)
         s_low = dataclasses.replace(
             s, sampling_freq=plan.new_fs, intermediate_freq=plan.new_if,
             resampling=False)
@@ -383,26 +389,33 @@ def acquire(signal, settings: Settings, prns=None,
     cfg = make_acq_config(s)
     d8, p8, fd, fp = _device_acq_tables(s, tuple(int(p) for p in prns), dev)
 
-    bin_freqs = cfg.freq_base + cfg.freq_step * np.arange(cfg.n_bins)
-    a_bins, c1_bins = (torch.from_numpy(x).to(dev)
-                       for x in phase_tables(bin_freqs, cfg.fs))
-    best_v, best_b, best_p = coarse_search(sig, d8, p8, a_bins, c1_bins, cfg)
+    with span("acquire.coarse"):
+        bin_freqs = cfg.freq_base + cfg.freq_step * np.arange(cfg.n_bins)
+        a_bins, c1_bins = (torch.from_numpy(x).to(dev)
+                           for x in phase_tables(bin_freqs, cfg.fs))
+        best_v, best_b, best_p = coarse_search(sig, d8, p8, a_bins, c1_bins,
+                                               cfg)
     if s.signal == Signal.B2A:
-        metric = best_v / second_peak(sig, d8, p8, best_b, best_p,
-                                      a_bins, c1_bins, cfg)
+        with span("acquire.second_peak"):
+            metric = best_v / second_peak(sig, d8, p8, best_b, best_p,
+                                          a_bins, c1_bins, cfg)
     else:
-        metric = best_v / glrt_noise_power(
-            sig[: cfg.n_coh].cpu().numpy())
+        with span("acquire.glrt"):
+            metric = best_v / glrt_noise_power(
+                sig[: cfg.n_coh].cpu().numpy())
 
-    best_b_h = best_b.cpu().numpy()
-    coarse_freq = cfg.freq_base + cfg.freq_step * best_b_h.astype(np.float64)
-    offsets = cfg.fine_span_low + cfg.fine_step * np.arange(cfg.fine_bins)
-    a_c, c1_c = (torch.from_numpy(x).to(dev)
-                 for x in phase_tables(coarse_freq, cfg.fs))
-    a_o, c1_o = (torch.from_numpy(x).to(dev)
-                 for x in phase_tables(offsets, cfg.fs))
-    scores = fine_search(sig, fd, fp, best_p, a_c, c1_c, a_o, c1_o, cfg)
-    best_fine = torch.argmax(scores, dim=-1).cpu().numpy()
+    with span("acquire.fine"):
+        best_b_h = best_b.cpu().numpy()
+        coarse_freq = cfg.freq_base \
+            + cfg.freq_step * best_b_h.astype(np.float64)
+        offsets = cfg.fine_span_low \
+            + cfg.fine_step * np.arange(cfg.fine_bins)
+        a_c, c1_c = (torch.from_numpy(x).to(dev)
+                     for x in phase_tables(coarse_freq, cfg.fs))
+        a_o, c1_o = (torch.from_numpy(x).to(dev)
+                     for x in phase_tables(offsets, cfg.fs))
+        scores = fine_search(sig, fd, fp, best_p, a_c, c1_c, a_o, c1_o, cfg)
+        best_fine = torch.argmax(scores, dim=-1).cpu().numpy()
     metric = metric.cpu().numpy()
     carr = coarse_freq + offsets[best_fine]
     carr = np.where(carr == 0.0, 1.0, carr)  # acquisition.m:303-305

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from bds3_tpu_torch.utils.device import resolve_device
+from bds3_tpu_torch.utils.trace import count
 
 PACKINGS = ("none", "int4", "int2")
 
@@ -165,13 +166,19 @@ def upload(host: np.ndarray, packing: str,
     pairs = host.ndim == 2
     check_packing(packing, "IQ8" if pairs else str(host.dtype))
     if packing == "int4":
-        return unpack_int4(torch.from_numpy(pack_int4(host)).to(device), n)
+        return unpack_int4(_send(pack_int4(host), device), n)
     if packing == "int2":
-        return unpack_int2(torch.from_numpy(pack_int2(host)).to(device), n)
+        return unpack_int2(_send(pack_int2(host), device), n)
     # a writeable host copy only where the source is not (a read-only
     # memmap of a capture file)
-    t = torch.from_numpy(np.require(host, requirements=["W"])).to(device)
+    t = _send(np.require(host, requirements=["W"]), device)
     return widen_iq8(t) if pairs else t
+
+
+def _send(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """`host` copied to `device`, its bytes counted in `upload.h2d_bytes`."""
+    count("upload.h2d_bytes", host.nbytes)
+    return torch.from_numpy(host).to(device)
 
 
 def upload_capture(signal, packing: str = "none",

@@ -13,6 +13,11 @@ optionally packed (`transport`, int8 only); a larger one, or a
 host (track/driver.py).
 C/N0 and lock health, navigation decoding and PVT run on the host, in the
 port's own copies of the reference's host modules.
+
+Under a profiler a run is one `receiver.run` span holding
+`receiver.acquire`, `receiver.upload` (a capture uploaded whole),
+`receiver.track` and `receiver.navpvt` (`utils/trace.py`); `timings`
+holds each stage's `time.perf_counter` seconds, taken inside its span.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from bds3_tpu_torch.track.driver import (
 )
 from bds3_tpu_torch.track.state import ChannelInit, assign_channels
 from bds3_tpu_torch.utils.device import resolve_device
+from bds3_tpu_torch.utils.trace import span, spanned
 
 # device_resident="auto" keeps at least this share of the card's free
 # memory for acquisition and tracking after the capture is uploaded
@@ -111,6 +117,7 @@ def _channel_table(channels) -> str:
     return "\n".join(lines)
 
 
+@spanned("receiver.run")
 def run_receiver(
     signal,
     settings: Settings,
@@ -160,22 +167,25 @@ def run_receiver(
                 len(signal) * capture_dtype(signal.dtype).itemsize, dev)
 
     timings = {}
-    t0 = time.time()
-    if acq_results is not None:
-        acq = acq_results
-    else:
-        # the window is read from the source as given (receiver.py:108-113)
-        acq = acquire(signal[: acquisition_signal_length(settings)],
-                      settings, prns, device=dev)
-    timings["acquire_s"] = time.time() - t0
+    with span("receiver.acquire"):
+        t0 = time.perf_counter()
+        if acq_results is not None:
+            acq = acq_results
+        else:
+            # the window is read from the source as given
+            # (receiver.py:108-113)
+            acq = acquire(signal[: acquisition_signal_length(settings)],
+                          settings, prns, device=dev)
+        timings["acquire_s"] = time.perf_counter() - t0
 
     if device_resident is True and not isinstance(signal, torch.Tensor):
         # float32 and complex64 go up as they are, IQ8 pairs as int8
-        t0 = time.time()
-        signal = upload_capture(signal, transport, dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        timings["upload_s"] = time.time() - t0
+        with span("receiver.upload"):
+            t0 = time.perf_counter()
+            signal = upload_capture(signal, transport, dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            timings["upload_s"] = time.perf_counter() - t0
         if verbose:
             print(f"[upload] capture -> {dev} in {timings['upload_s']:.2f}s "
                   f"(transport={transport})")
@@ -194,13 +204,14 @@ def run_receiver(
 
     if n_epochs is None:
         n_epochs = settings.int_epochs
-    t0 = time.time()
     # a host source not uploaded above streams per block, with the
     # packing applied to each block
-    trk = track(signal, settings, channels, n_epochs=n_epochs,
-                epochs_per_block=min(epochs_per_block, n_epochs), device=dev,
-                transport=transport)
-    timings["track_s"] = time.time() - t0
+    with span("receiver.track"):
+        t0 = time.perf_counter()
+        trk = track(signal, settings, channels, n_epochs=n_epochs,
+                    epochs_per_block=min(epochs_per_block, n_epochs),
+                    device=dev, transport=transport)
+        timings["track_s"] = time.perf_counter() - t0
     ms_tracked = trk.n_epochs * settings.int_time * 1e3
     timings["track_realtime_factor"] = ms_tracked / 1e3 / timings["track_s"]
     if verbose:
@@ -222,9 +233,10 @@ def run_receiver(
             pickle.dump({"settings": settings, "acq": acq,
                          "channels": channels, "track": trk}, f)
 
-    t0 = time.time()
-    nav = post_navigation(trk, settings)
-    timings["pvt_s"] = time.time() - t0
+    with span("receiver.navpvt"):
+        t0 = time.perf_counter()
+        nav = post_navigation(trk, settings)
+        timings["pvt_s"] = time.perf_counter() - t0
     if verbose:
         if nav is None:
             print("[pvt] no solution (insufficient decoded satellites)")

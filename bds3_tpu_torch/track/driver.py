@@ -24,6 +24,13 @@ left on the device (`download=False`, `LazyOutputs`).
 A capture is real (int8, float32) or complex64, tracked in the dtype
 `io.transport.capture_dtype` gives it; the config is built for its kind
 (`require_ported`).
+
+Under a profiler each call is one `track` span holding `track.setup`,
+then `track.blocks` (resident) or a `track.read` and a `track.upload`
+for each block (per block), then `track.download` (which on a card
+holds the wait for the kernels queued before the copy) and
+`track.assemble`; the requests, seconds of signal, blocks and downloaded
+bytes are counted (`utils/trace.py`).
 """
 from __future__ import annotations
 
@@ -69,6 +76,7 @@ from bds3_tpu_torch.track.state import (
     make_track_config,
 )
 from bds3_tpu_torch.utils.device import resolve_device
+from bds3_tpu_torch.utils.trace import count, span, spanned
 
 
 class LazyOutputs:
@@ -112,9 +120,18 @@ class LazyOutputs:
 
     def realize(self) -> dict:
         """Download the rows once; name -> (C, E) numpy arrays."""
-        rows = self._rows[: self._n].cpu().numpy()
-        return {k: np.ascontiguousarray(rows[:, :, i].T)
-                for k, i in self._idx.items()}
+        rows = download_rows(self._rows[: self._n])
+        with span("track.assemble"):
+            return {k: np.ascontiguousarray(rows[:, :, i].T)
+                    for k, i in self._idx.items()}
+
+
+def download_rows(rows: torch.Tensor) -> np.ndarray:
+    """The rows as numpy, counted in `track.d2h_bytes`."""
+    with span("track.download"):
+        out = rows.cpu().numpy()
+    count("track.d2h_bytes", out.nbytes)
+    return out
 
 
 @dataclasses.dataclass
@@ -330,6 +347,7 @@ def check_host_source(signal) -> None:
     capture_dtype(getattr(signal, "dtype", None))
 
 
+@spanned("track.setup")
 def setup_tracking(capture, settings: Settings, inits: list[ChannelInit],
                    n_epochs: int, epochs_per_block: int,
                    device: str | torch.device | None = None) -> TrackSetup:
@@ -358,6 +376,7 @@ def setup_tracking(capture, settings: Settings, inits: list[ChannelInit],
     )
 
 
+@spanned("track.blocks")
 def run_blocks(setup: TrackSetup, capture: torch.Tensor,
                block_fn) -> torch.Tensor:
     """All blocks over a resident capture, one `block_fn` call each;
@@ -367,6 +386,7 @@ def run_blocks(setup: TrackSetup, capture: torch.Tensor,
     for _ in range(setup.n_blocks):
         state, r = block_fn(setup.cfg, capture, setup.tables, setup.consts,
                             state)
+        count("track.blocks")
         rows.append(r)
     return torch.cat(rows)
 
@@ -407,13 +427,16 @@ def stream_blocks(setup: TrackSetup, signal, block_fn, transport: str = "none",
                        setup.state.statef)
     rows, pending = [], None
     for s_cur in sched.starts:
-        host = read_host(signal, s_cur, s_cur + sched.block_len)
-        if len(host) < sched.block_len:
-            pad = np.zeros((sched.block_len - len(host),) + host.shape[1:],
-                           host.dtype)
-            host = np.concatenate([host, pad])
-        block = _upload_block(host, transport, dev, side)
+        with span("track.read"):
+            host = read_host(signal, s_cur, s_cur + sched.block_len)
+            if len(host) < sched.block_len:
+                pad = np.zeros((sched.block_len - len(host),)
+                               + host.shape[1:], host.dtype)
+                host = np.concatenate([host, pad])
+        with span("track.upload"):
+            block = _upload_block(host, transport, dev, side)
         state, r = block_fn(cfg, block, setup.tables, setup.consts, state)
+        count("track.blocks")
         rows.append(r)
         state = TrackState(state.cursor - sched.shift, state.statef)
         if sync_each_block and dev.type == "cuda":
@@ -428,6 +451,7 @@ def stream_blocks(setup: TrackSetup, signal, block_fn, transport: str = "none",
     return torch.cat(rows)
 
 
+@spanned("track")
 def track(
     signal,
     settings: Settings,
@@ -491,7 +515,7 @@ def track(
     ran = ran_name(correlator, rows.device.type == "cuda")
     if not download:
         n_eff = min(n_epochs, rows.shape[0])
-        return TrackResults(
+        res = TrackResults(
             prns=np.array([c.prn for c in inits]),
             acquired_freq=np.array([c.acquired_freq for c in inits],
                                    dtype=np.float64),
@@ -499,7 +523,11 @@ def track(
             outputs=LazyOutputs(rows, output_names(setup.cfg), n_eff),
             absolute_sample=None, carr_freq=None, code_freq=None,
             int_time=settings.int_time, settings=settings, correlator=ran)
-    return assemble_results(setup, rows, settings, n_epochs, ran)
+    else:
+        res = assemble_results(setup, rows, settings, n_epochs, ran)
+    count("track.requests")
+    count("track.signal_ms", res.n_epochs * (settings.int_time * 1e3))
+    return res
 
 
 def assemble_results(setup: TrackSetup, rows: torch.Tensor,
@@ -509,15 +537,17 @@ def assemble_results(setup: TrackSetup, rows: torch.Tensor,
     fields (bds3_tpu/track/driver.py:386-414)."""
     cfg, inits = setup.cfg, setup.inits
     names = output_names(cfg)
-    stacked = rows[:n_epochs, :, :len(names)].cpu().numpy()   # (E, C, F)
-    outputs = {k: np.ascontiguousarray(stacked[:, :, i].T)
-               for i, k in enumerate(names)}                  # (C, E)
-    blks = outputs["blksize"].astype(np.int64)
-    absolute_sample = setup.cursors0[:, None] + np.cumsum(blks, axis=1)
-    base = np.array([c.acquired_freq for c in inits], dtype=np.float64)
-    carr_freq = base[:, None] + outputs["d_cyc"].astype(np.float64) * cfg.fs
-    code_freq = settings.code_freq_basis \
-        + outputs["d_step"].astype(np.float64) * cfg.fs
+    stacked = download_rows(rows[:n_epochs, :, :len(names)])  # (E, C, F)
+    with span("track.assemble"):
+        outputs = {k: np.ascontiguousarray(stacked[:, :, i].T)
+                   for i, k in enumerate(names)}              # (C, E)
+        blks = outputs["blksize"].astype(np.int64)
+        absolute_sample = setup.cursors0[:, None] + np.cumsum(blks, axis=1)
+        base = np.array([c.acquired_freq for c in inits], dtype=np.float64)
+        carr_freq = base[:, None] \
+            + outputs["d_cyc"].astype(np.float64) * cfg.fs
+        code_freq = settings.code_freq_basis \
+            + outputs["d_step"].astype(np.float64) * cfg.fs
     return TrackResults(
         prns=np.array([c.prn for c in inits]),
         acquired_freq=base,

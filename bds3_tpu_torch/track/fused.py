@@ -39,6 +39,7 @@ from bds3_tpu_torch.track.scan import (
 )
 from bds3_tpu_torch.track.state import SPLIT, TrackConfig
 from bds3_tpu_torch.utils.device import check_tensor
+from bds3_tpu_torch.utils.trace import mirror, span
 
 KERNEL_NAME = "track_fused_cuda"
 SOURCE = "bds3_tpu_torch/csrc/track_fused.cu"
@@ -268,6 +269,15 @@ def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
         return track_block_reference(cfg, capture, tables, consts, state)
     if dev.type != "cuda":
         raise ValueError(f"no tracking kernel for device {dev}")
+    with span("k1.launch"):
+        return _launch(cfg, capture, tables, consts, state, _cluster)
+
+
+def _launch(cfg: TrackConfig, capture: torch.Tensor, tables: TrackTables,
+            consts, state: TrackState, _cluster: int | None
+            ) -> tuple[TrackState, torch.Tensor]:
+    """`fused_track_block` on a card: its checks and its launch."""
+    dev = capture.device
     check_capture(cfg, capture)
 
     C = state.cursor.shape[0]
@@ -327,3 +337,4 @@ def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
 
 
 fused_track_block.launches = 0   # kernel launches, for run accounting
+mirror("k1.launches", lambda: fused_track_block.launches)

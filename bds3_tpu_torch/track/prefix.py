@@ -44,6 +44,7 @@ import torch
 
 from bds3_tpu_torch.track.state import SPLIT
 from bds3_tpu_torch.utils.device import check_tensor
+from bds3_tpu_torch.utils.trace import mirror
 
 KERNEL_NAME = "mix_prefix_cuda"
 SOURCE = "bds3_tpu_torch/csrc/mix_prefix.cu"
@@ -223,3 +224,4 @@ def mix_prefix(capture: torch.Tensor, cursor: torch.Tensor,
 
 
 mix_prefix.launches = 0   # kernel launches, for run accounting
+mirror("k2.launches", lambda: mix_prefix.launches)

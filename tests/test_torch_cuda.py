@@ -583,3 +583,37 @@ def test_parallel_ranks_on_one_card_equal_one_rank(cuda, tmp_path):
         assert res[f"{name}/k1_check_blksize_equal"].all()
         assert res[f"{name}/k1_check_cursor_equal"].all()
         assert (res[f"{name}/k1_check_scaled_err"] <= 1e-3).all()
+
+
+def test_track_spans_on_the_card(cuda):
+    """track() on the card under the profiler: one `k1.launch` span a
+    block, inside the launch loop's span, counted as K1's launches; the
+    download's span after the loop's; the four kernels on the device's
+    timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bds3_tpu_torch.utils.trace import counters
+
+    s = b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6)
+    cap, setup = _setup(cuda, None, 40, s)
+    kw = dict(n_epochs=40, epochs_per_block=10, device=cuda)
+    driver.track(cap, s, setup.inits, **kw)                    # warm
+    k1 = counters()["k1.launches"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        driver.track(cap, s, setup.inits, **kw)
+    assert counters()["k1.launches"] - k1 == 4
+    host, kernels = {}, []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if "track_fused_kernel" in e.name:
+                kernels.append((e.time_range.start, e.time_range.end))
+        else:
+            host.setdefault(e.name, []).append((e.time_range.start,
+                                                e.time_range.end))
+    (b0, b1), = host["track.blocks"]
+    assert len(host["k1.launch"]) == 4
+    assert all(b0 <= a <= b <= b1 for a, b in host["k1.launch"])
+    (d0, _), = host["track.download"]
+    assert b1 <= d0
+    assert len(kernels) == 4

@@ -31,6 +31,7 @@ from bds3_tpu_torch.tools import (
     streaming_demo,
     validate_b1c_chain,
 )
+from bds3_tpu_torch.utils.trace import counters
 from test_navmsg import sample_eph
 
 torch.set_num_threads(2)
@@ -65,18 +66,71 @@ def test_sample_eph_copy_equals_the_tests(prn):
     assert sorted(p for p, *_ in b2a_pipeline_demo.SATS) == [19, 30]
 
 
+def _profile_trace_tables(out: list[str], first: str):
+    """The profile_trace line that starts with `first`, then its table of
+    spans {name: (count, total ms, self ms)} and of counters {name:
+    value}."""
+    line = next(i for i, r in enumerate(out) if r.startswith(first))
+    assert out[line + 1].split() == ["span", "count", "total", "ms", "self",
+                                     "ms"]
+    end = next(i for i in range(line + 2, len(out))
+               if out[i].split() == ["counter", "value"])
+    spans = {r.split()[0]: (int(r.split()[1]), *map(float, r.split()[2:]))
+             for r in out[line + 2:end]}
+    values = {r.split()[0]: float(r.split()[1]) for r in out[end + 1:]}
+    assert all(tot >= own >= 0 for _, tot, own in spans.values())
+    return out[line], spans, values
+
+
 def test_profile_trace_writes_a_trace(tmp_path, capsys):
     """20 ms of B2a at 99.375 Msps, 12 channels, 18 epochs through track()
     "auto" (the kernel's plain version on the CPU): a Chrome trace with
-    the tracking in it, and the original's line."""
+    the tracking and the driver's spans in it, the original's line, the
+    table of the spans, then the counters, the warm-up included."""
+    before = counters()
     assert profile_trace.main([str(tmp_path), "0.02", "--device", "cpu"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert out[-1].startswith("traced 18 epochs x 12 ch in ")
-    assert out[-1].endswith(f"(correlator=reference); trace -> {tmp_path}")
+    line, table, values = _profile_trace_tables(out, "traced ")
+    assert line.startswith("traced 18 epochs x 12 ch in ")
+    assert line.endswith(f"(correlator=reference); trace -> {tmp_path}")
+    assert sorted(table) == ["track", "track.blocks", "track.setup"]
+    assert all(n == 1 for n, _, _ in table.values())
+    assert set(values) == set(counters())
+    assert {k: values[k] - before.get(k, 0) for k in
+            ("track.requests", "track.blocks", "track.signal_ms",
+             "k1.launches")} == {"track.requests": 2, "track.blocks": 2,
+                                 "track.signal_ms": 36, "k1.launches": 0}
     with open(tmp_path / "trace.json") as f:
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
+    assert set(table) <= names
+
+
+def test_profile_trace_traces_the_receiver(tmp_path, capsys):
+    """`--receiver`: the same capture through run_receiver, so that the
+    receiver's and acquisition's stage spans are in the trace and its
+    table, around the tracking's, and the download is counted."""
+    before = counters()
+    assert profile_trace.main([str(tmp_path), "0.02", "--device", "cpu",
+                               "--receiver"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    line, table, values = _profile_trace_tables(out, "traced the receiver")
+    assert line.startswith("traced the receiver: 16 epochs x 2 ch in ")
+    assert line.endswith(f"; trace -> {tmp_path}")
+    assert set(table) == {
+        "receiver.run", "receiver.acquire", "receiver.track",
+        "receiver.navpvt", "acquire.coarse", "acquire.second_peak",
+        "acquire.fine", "track", "track.setup", "track.blocks",
+        "track.download", "track.assemble"}
+    assert all(n == 1 for n, _, _ in table.values())
+    assert table["receiver.run"][1] >= table["receiver.acquire"][1] \
+        + table["receiver.track"][1]
+    assert values["track.requests"] - before.get("track.requests", 0) == 2
+    assert values["track.d2h_bytes"] > before.get("track.d2h_bytes", 0)
+    with open(tmp_path / "trace.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert set(table) <= names
 
 
 @pytest.mark.parametrize("name", sorted(CARD_DRIVERS))

@@ -9,6 +9,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import bds3_tpu.track.driver as ref_driver
 from bds3_tpu.config import FileType as RefFileType
@@ -71,6 +72,30 @@ def _assert_same_geometry(got, want):
     for c, e in bad:
         assert d[c, e + 1] == 0, (c, e)
     assert len(bad) <= 2, bad
+
+
+def _assert_receiver_spans(prof, timings):
+    """The receiver's stages each in one span inside its root span, in
+    order, each stage's timing within its span; a host capture that is
+    not uploaded whole is read and uploaded block by block in tracking."""
+    spans = {}
+    for e in prof.events():
+        spans.setdefault(e.name, []).append((e.time_range.start,
+                                             e.time_range.end))
+    (r0, r1), = spans["receiver.run"]
+    stages = {"receiver.acquire": "acquire_s", "receiver.track": "track_s",
+              "receiver.navpvt": "pvt_s"}
+    last = r0
+    for name, key in stages.items():
+        (a, b), = spans[name]
+        assert last <= a <= b <= r1, name
+        assert 0 < timings[key] <= (b - a) * 1e-6, name
+        last = b
+    assert "receiver.upload" not in spans
+    assert set(timings) == {"acquire_s", "track_s", "track_realtime_factor",
+                            "pvt_s"}
+    assert len(spans["track.read"]) == len(spans["track.upload"]) > 1
+    assert spans["acquire.glrt"] and spans["acquire.fine"]
 
 
 def test_receiver_matches_reference(scenario, monkeypatch):
@@ -144,10 +169,12 @@ def test_b1c_receiver_matches_reference(monkeypatch):
     sig = synthesize_scenario(sc, noise_std=2.0, amplitude=1.3, seed=2)
     _pin_reference(monkeypatch, "gather")
     ref = ref_run_receiver(sig, s, epochs_per_block=50, verbose=False)
-    port = port_receiver.run_receiver(sig, P(s), epochs_per_block=50,
-                                      verbose=False, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        port = port_receiver.run_receiver(sig, P(s), epochs_per_block=50,
+                                          verbose=False, device="cpu")
     assert ref.track.correlator == "gather"
     assert port.track.correlator == "reference"
+    _assert_receiver_spans(prof, port.timings)
 
     def key(c):
         return c.prn, c.acquired_freq, c.code_phase

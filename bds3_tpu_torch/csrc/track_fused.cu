@@ -31,9 +31,23 @@
 // the epoch length n from that state, and cluster rank r takes the
 // contiguous slice [r*ceil(n/S), min(n, (r+1)*ceil(n/S))) of the epoch's
 // samples (fused.py:rank_slice), which keeps the capture reads coalesced.
-// Its threads stride over the slice: load the sample, mix it with the
-// local carrier, and add it, signed by its chip, into up to 18 sums
-// (I/Q x early/prompt/late x data/pilot BOC(1,1)/pilot BOC(6,1)).  The
+// Its threads walk the slice in runs: run i holds the samples [i*R,
+// (i+1)*R) of the epoch, R = 16 bytes of capture (16 int8, 4 float32 or 2
+// complex64 samples, Capture<KIND>::RUN), so no run crosses a SPLIT
+// segment of the coarse tables, and the slice's whole runs go to the
+// threads in turn (a warp reads 512 consecutive bytes).  A run is one
+// 16-byte vector load, read as two aligned loads and a word select and
+// byte funnel shift where the cursor leaves it unaligned (a float32 or
+// complex64 run, 4 or 2 samples, is cheaper read sample by sample).  What
+// the run's samples share is taken once a run: the coarse
+// carrier, code-phase and chip-index entries, and one wrap of the chip
+// indices (below).  The samples at j0 + i then take j_f and r_f as exact
+// float adds of i, and each is mixed with the local carrier and added,
+// signed by its chip, into up to 18 sums (I/Q x early/prompt/late x
+// data/pilot BOC(1,1)/pilot BOC(6,1)), the run body specialised on the
+// taps and the BOC(6,1) bank by a uniform branch an epoch.  The slice's
+// ragged head and tail (under R samples each) and runs at the capture's
+// edges are read sample by sample, zero outside [0, total).  The
 // block reduces its threads' sums in float64 (warp shuffles, then one
 // partial per warp) and writes its 18 partials into its own shared memory,
 // double-buffered by epoch parity; then one cluster barrier.  After it,
@@ -53,10 +67,12 @@
 // Sums.  Every chip table entry is +1 or -1 (the tables are checked by
 // tests/test_torch_fused_geometry.py), so a product cv*x is exactly +-x:
 // each sample's mixed I and Q are converted to float64 once, and each
-// correlator is a float64 running sum to which the sample is added with
-// cv's sign xored into its sign bit (one LOP3 and one DADD; the H100 runs
-// float64 adds at half the float32 rate, against the four float32 adds of
-// a compensated (Kahan) sum: 2-7% faster a block, PERF.md).  The sums of
+// correlator is a float64 running sum to which the sample is added by one
+// fused multiply-add with cv as +-1.0, exact (the H100 runs float64 at
+// half the float32 rate, against the four float32 adds of a compensated
+// (Kahan) sum: 2-7% faster a block, PERF.md; the +-1.0 is shared by a
+// tap's I and Q sums, where xoring cv's sign into xd took a copy of xd's
+// low word for each sum: 4-10% slower, tools/k1_loop_ab.py).  The sums of
 // ~1e6 float32 terms then carry float64 rounding only, and each
 // correlator is rounded to float32 once, as the plain version's float64
 // sum of the same terms is: the two agree bit for bit on the card, where
@@ -67,35 +83,47 @@
 //
 // Chip index.  raw = ck_int + ceil(frac) - 1 lies in (-L*m, 2*L*m) while
 // the loop state is in its normal range (|rem_code| < 1 chip, the code
-// rate within 1e-4 of nominal: fused.py:chip_index_bound), so one
-// conditional add or subtract of L*m replaces the modulo.  Each epoch
-// every block checks from its state that all of the epoch's raw indices
-// are in that range (wraps_once, fused.py:wraps_once mirrors it) and
-// takes the modulo where they may not be: the same result, by a uniform
-// branch.
+// rate within 1e-4 of nominal: fused.py:chip_index_bound), and within a
+// run it moves by a few entries.  So each run takes one wrap of -L*m, 0
+// or L*m, from its first sample's prompt index, and every index of the
+// run lands within SMEM_PAD entries of [0, L*m), where the tables in
+// shared memory repeat themselves circularly; ceil(frac) is one float add
+// rounded up onto 1.5 * 2^23, whose low bits are then the index (table_pos).
+// Each epoch every block checks from its state that all of the epoch's
+// raw indices are in that range and that a run moves by less than the
+// padding (wraps_once and runs_fit; fused.py mirrors both) and where they
+// may not, every sample takes cvt.rpi and the modulo instead: the same
+// result, by a uniform branch.
 //
 // What bounds it.  Each sample costs one sincosf, three chip-index
 // computations (six for B1C wideband) and up to twelve signed float64 adds
 // (eighteen), and a complex sample four more multiplies and adds; the
 // capture is read once (1, 4 or 8 bytes a sample: at most about 8 x 10^8
-// bytes per second of signal, far below the card's bandwidth).  Spread
-// over C*S SMs, the per-sample work shrinks by S; what does not shrink is
-// the per-epoch chain: one block reduction, one cluster barrier, the
-// distributed partial reads and the scalar tail, W times per launch (4-10
-// us an epoch on the H100, PERF.md).  Staging the window with cp.async
-// and capturing short blocks in a CUDA graph are later work.  None of the
-// TPU kernel's machinery is carried over (prefix scratch, MXU one-hot
-// selects, boundary tiles, the 4096-aligned DMA ring): the direct sum
-// here is the same sum as its bucket form,
-// regrouped (scan.py:171-173).
+// bytes per second of signal, far below the card's bandwidth).  So the
+// loop is bound by the instructions it issues, 110 to 140 a sample
+// (tools/k1_loop_ab.py counts them in the SASS): the per-sample chain is
+// kept to the reference's float32 operations, libdevice's sincosf and the
+// float64 adds, and what changes only once a run or never (the coarse
+// entries, the wrap, the bounds check, j and j % SPLIT) is taken out of
+// it; the modulo is x - truncf(x), the chip index's ceil and conversion
+// one float add, the int8 conversion a byte permute and a float add, all
+// exact.  Spread over C*S SMs, the per-sample work shrinks by S; what does
+// not shrink is the per-epoch chain: one block reduction, one cluster
+// barrier, the distributed partial reads and the scalar tail, W times per
+// launch (4-10 us an epoch on the H100, PERF.md).  Capturing short blocks
+// in a CUDA graph is later work.  None of the TPU kernel's machinery is
+// carried over (prefix scratch, MXU one-hot selects, boundary tiles, the
+// 4096-aligned DMA ring): the direct sum here is the same sum as its
+// bucket form, regrouped (scan.py:171-173).
 //
 // Shared memory of one block (fused.py:_smem_bytes mirrors it): the warp
 // partials (16 x 18 float64), the cluster partials (2 x 18 float64), the
 // cursor, the state and the 18 rounded sums (2,704 bytes in all), then
 // the coarse tables and the carrier table (int32 + 2 float32 per entry),
-// the BOC(6,1) coarse tables where wideband, and the int8 chip tables: at
-// the B1C preset (99.375 Msps, wideband) about 171,000 of the 232,448
-// bytes a block may opt in to.  128 registers a thread allow one block of
+// the BOC(6,1) coarse tables where wideband, and the int8 chip tables,
+// each padded by SMEM_PAD entries on either side: at the B1C preset
+// (99.375 Msps, wideband) about 171,600 of the 232,448 bytes a block may
+// opt in to.  128 registers a thread allow one block of
 // 512 threads per SM whatever the tables take.
 //
 // Exactness.  The epoch length blksize = q0_int + ceil(resid) and each
@@ -109,7 +137,10 @@
 //  * every expression keeps the reference's operation order, and divisions
 //    by configuration constants are multiplications by the float32
 //    reciprocal, as the plain version writes them;
-//  * jnp.mod is a floor-mod: mod1() adds 1 to a negative fmodf result;
+//  * jnp.mod is a floor-mod: mod1() adds 1 to a negative fmodf result,
+//    itself x - truncf(x) with x's sign, which equals fmodf(x, 1) for
+//    every float32 (tests/test_torch_k1_exact_forms.py checks this and
+//    the other exact forms: the ceil, the int8 conversion, j_f and r_f);
 //  * the cursor is an absolute int64 sample index; the reference's cursor
 //    is block-relative and shifted each block (driver.py:59,353), and only
 //    cursor - start enters the math;
@@ -134,7 +165,13 @@ namespace cg = cooperative_groups;
 #define THREADS 512
 #define N_WARPS (THREADS / 32)
 #define SPLIT 4096
-#define CODE_PAD 16
+#define CODE_PAD 16   // circular padding of the chip tables as passed
+// the circular padding of each chip table in shared memory, in entries on
+// either side (runs_fit)
+#define SMEM_PAD 64
+// 1.5 * 2^23 and its bits (table_pos)
+#define CEIL_MAGIC 12582912.0f
+#define CEIL_MAGIC_BITS 0x4B400000
 // the block's bookkeeping at the front of its shared memory: warp
 // partials, cluster partials by epoch parity (float64), the cursor, the
 // state and the rounded sums
@@ -170,26 +207,30 @@ struct TrackParams {
 
 // <acc>
 // One correlator's running sum of cv * x over a thread's samples, cv = +-1:
-// x's float64 copy xd with cv's sign bit xored into its own, added in
-// float64.  (x itself is for tools/k1_sum_ab.py's compensated float32
-// variant of this block, which adds cv * x.)
+// cv as the float64 +-1.0 (its sign bit on 1.0's high word; the I and Q
+// sums of a tap and phase share it) times x's float64 copy xd, added by one
+// fused multiply-add.  The product is exactly +-xd, so the sum is rounded
+// once, as a DADD of +-xd is.  (x itself is for tools/k1_sum_ab.py's
+// compensated float32 variant of this block, which adds cv * x.)
 struct Acc {
   double s;
   __device__ __forceinline__ void zero() { s = 0.0; }
   __device__ __forceinline__ void add(int cv, float x, double xd) {
-    const int hi = __double2hiint(xd) ^ (cv & (int)0x80000000);
-    s += __hiloint2double(hi, __double2loint(xd));
+    const double c =
+        __hiloint2double((cv & (int)0x80000000) | 0x3FF00000, 0);
+    s = __fma_rn(xd, c, s);
   }
   __device__ __forceinline__ double value() const { return s; }
 };
 // </acc>
 
 // The capture kinds (fused.py:CAPTURE_KINDS), each a load of sample g
-// (zero outside [0, total)) and its mix with the local carrier e^{-j
-// theta}, cs = cos(theta) and sn = sin(theta) (scan.py:_mix): a real
-// sample x gives (x cs, -(x sn)); a complex one, stored as interleaved
-// (I, Q) float pairs (torch.view_as_real's layout), gives (I cs + Q sn,
-// Q cs - I sn), four products and two sums each rounded on its own.
+// (zero outside [0, total)), the samples of one run (RUN samples, 16
+// bytes, from four 32-bit words) and a sample's mix with the local carrier
+// e^{-j theta}, cs = cos(theta) and sn = sin(theta) (scan.py:_mix): a
+// real sample x gives (x cs, -(x sn)); a complex one, stored as
+// interleaved (I, Q) float pairs (torch.view_as_real's layout), gives (I cs
+// + Q sn, Q cs - I sn), four products and two sums each rounded on its own.
 #define CAPTURE_INT8 0
 #define CAPTURE_FLOAT32 1
 #define CAPTURE_COMPLEX64 2
@@ -207,26 +248,66 @@ template <int KIND> struct Capture;
 
 template <> struct Capture<CAPTURE_INT8> : RealMix {
   using T = int8_t;
+  static constexpr int RUN = 16;
   static __device__ __forceinline__ S load(const T* cap, long long g,
                                            long long total) {
     return (g >= 0 && g < total) ? (float)cap[g] : 0.0f;
+  }
+  // sample i of a run at the capture's edges into its word, zero outside
+  static __device__ __forceinline__ void put(uint32_t (&w)[8], int i,
+                                             const T* cap, long long g,
+                                             long long total) {
+    if (g >= 0 && g < total)
+      w[i >> 2] |= (uint32_t)(uint8_t)cap[g] << (8 * (i & 3));
+  }
+  // Sample i of a run: its byte, xored with 0x80 (so b + 128), placed
+  // under the exponent of 2^23 by one byte permute, less 2^23 + 128 in one
+  // float add; both steps are exact, so the value is (float)b.
+  static __device__ __forceinline__ S sample(const uint32_t (&v)[4],
+                                             int i) {
+    const uint32_t u = v[i >> 2] ^ 0x80808080u;
+    return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + (i & 3))) -
+           8388736.0f;
   }
 };
 
 template <> struct Capture<CAPTURE_FLOAT32> : RealMix {
   using T = float;
+  static constexpr int RUN = 4;
   static __device__ __forceinline__ S load(const T* cap, long long g,
                                            long long total) {
     return (g >= 0 && g < total) ? cap[g] : 0.0f;
+  }
+  static __device__ __forceinline__ void put(uint32_t (&w)[8], int i,
+                                             const T* cap, long long g,
+                                             long long total) {
+    w[i] = __float_as_uint(load(cap, g, total));
+  }
+  static __device__ __forceinline__ S sample(const uint32_t (&v)[4],
+                                             int i) {
+    return __uint_as_float(v[i]);
   }
 };
 
 template <> struct Capture<CAPTURE_COMPLEX64> {
   using T = float2;
   using S = float2;
+  static constexpr int RUN = 2;
   static __device__ __forceinline__ S load(const T* cap, long long g,
                                            long long total) {
     return (g >= 0 && g < total) ? cap[g] : make_float2(0.0f, 0.0f);
+  }
+  static __device__ __forceinline__ void put(uint32_t (&w)[8], int i,
+                                             const T* cap, long long g,
+                                             long long total) {
+    const float2 x = load(cap, g, total);
+    w[2 * i] = __float_as_uint(x.x);
+    w[2 * i + 1] = __float_as_uint(x.y);
+  }
+  static __device__ __forceinline__ S sample(const uint32_t (&v)[4],
+                                             int i) {
+    return make_float2(__uint_as_float(v[2 * i]),
+                       __uint_as_float(v[2 * i + 1]));
   }
   static __device__ __forceinline__ void mix(S x, float cs, float sn,
                                             float* ib, float* qb) {
@@ -235,8 +316,11 @@ template <> struct Capture<CAPTURE_COMPLEX64> {
   }
 };
 
+// fmodf(x, 1.0f), floored as jnp.mod is: x - truncf(x) is exact for every
+// finite float32 (the fraction's bits are x's own), copysignf keeps the
+// sign fmodf gives a zero result, and a negative result takes +1 as before.
 __device__ __forceinline__ float mod1(float x) {
-  float r = fmodf(x, 1.0f);
+  const float r = copysignf(x - truncf(x), x);
   return r < 0.0f ? r + 1.0f : r;
 }
 
@@ -324,16 +408,265 @@ __device__ __forceinline__ bool wraps_once(float lo_m, float hi_m, float dsm,
   return f_lo >= (float)(1 - lm) && f_hi <= (float)(lm + 1);
 }
 
-// Chip index (scan.py:85-89): (ck_int + ceil(chi*m) - 1) mod (L*m), with
-// one conditional add or subtract where wraps_once holds.
-__device__ __forceinline__ int chip_index(float base_m, float ck_frac,
-                                          int ck_int, float rsm, float jd,
-                                          int lm, bool once) {
-  const float frac = ((base_m + ck_frac) + rsm) + jd;
-  const int raw = ck_int + (int)ceilf(frac) - 1;
-  if (once) return raw < 0 ? raw + lm : (raw >= lm ? raw - lm : raw);
-  const int idx = raw % lm;
-  return idx < 0 ? idx + lm : idx;
+// Entry i of a table padded by SMEM_PAD on either side: i - SMEM_PAD
+// taken into [0, lm) (SMEM_PAD <= lm).
+__device__ __forceinline__ int wrap_entry(int i, int lm) {
+  const int idx = i - SMEM_PAD;
+  return idx < 0 ? idx + lm : (idx >= lm ? idx - lm : idx);
+}
+
+// Whether one wrap offset per run serves every chip index of a run of
+// `run` samples, in a bank whose early and late phases times m are lo_m
+// and hi_m: within a run, each frac lies within (hi_m - lo_m) + (run - 1)
+// * (sm + |dsm|) of the first sample's prompt frac, give or take the
+// rounding of the per-sample sums (under 0.1 where wraps_once holds, as
+// |frac| < 2^17 there), so each raw index lies within that plus 1 of the
+// first prompt's, and the SMEM_PAD entries of circular padding on either
+// side of the table must cover it.  fused.py:runs_fit mirrors it.
+__device__ __forceinline__ bool runs_fit(float lo_m, float hi_m, float dsm,
+                                         float sm, int run) {
+  return ((hi_m - lo_m) + (float)(run - 1) * (sm + fabsf(dsm))) + 2.0f <=
+         (float)SMEM_PAD;
+}
+
+// One epoch's constants of the sample loop, and the block's tables in
+// shared memory.
+struct Epoch {
+  float rem_cyc, d_cyc, ab, two_pi, sm, dsm, sm61, dsm61;
+  float base[3], base61[3];   // E/P/L code phase at the epoch start, times m
+  int lm, lm61, stride;       // stride: one tap's table with its padding
+  int off61;                  // the BOC(6,1) table's offset from code's
+  const float* carr;
+  const int* ck_int;
+  const float* ck_frac;
+  const int* ck61_int;
+  const float* ck61_frac;
+  const int8_t* code;
+};
+
+// What the samples of one run share, or a lone sample's own: the coarse
+// carrier phase plus the remainder, each E/P/L phase plus the coarse
+// fraction, and each bank's table offset (table_pos).
+struct Point {
+  float c0, b[3], b61[3];
+  int pos, pos61;
+};
+
+// The shared-memory position of the chip entry (ck_int + ceil(frac) - 1)
+// mod (L*m) (scan.py:85-89).  In a run, pos is ck_int - 1 plus the run's
+// wrap offset plus SMEM_PAD less CEIL_MAGIC_BITS, and ceil(frac) comes
+// from one float add rounded up: MAGIC + frac, for |frac| < 2^22, rounds
+// up to MAGIC + ceil(frac), whose bits are CEIL_MAGIC_BITS + ceil(frac).
+// A lone sample's pos is ck_int - 1: cvt.rpi and the modulo.
+template <bool RUN>
+__device__ __forceinline__ int table_pos(float frac, int pos, int lm) {
+  if (RUN) return pos + __float_as_int(__fadd_ru(frac, CEIL_MAGIC));
+  const int idx = (pos + __float2int_ru(frac)) % lm;
+  return (idx < 0 ? idx + lm : idx) + SMEM_PAD;
+}
+
+// A run's pos (table_pos) from the raw index of its first sample's prompt:
+// the wrap of -lm, 0 or lm that takes it into [0, lm).  Where wraps_once
+// and runs_fit hold, every index of the run lands within SMEM_PAD of
+// [0, lm), where the padding repeats the table circularly.
+__device__ __forceinline__ int run_pos(float frac, int ck_int, int lm) {
+  const int raw = (ck_int - 1) +
+      (__float_as_int(__fadd_ru(frac, CEIL_MAGIC)) - CEIL_MAGIC_BITS);
+  const int wrap = raw < 0 ? lm : (raw >= lm ? -lm : 0);
+  return ((ck_int - 1) + wrap + SMEM_PAD) - CEIL_MAGIC_BITS;
+}
+
+// One sample x at (r_f, j_f) = (j % SPLIT, j) of the epoch, mixed and
+// added, signed by its chips, into the sums; TAPS taps on the first chip
+// grid, and the BOC(6,1) bank where WB.
+template <int KIND, int TAPS, bool WB, bool RUN>
+__device__ __forceinline__ void add_sample(const Epoch& ep, const Point& pt,
+                                           typename Capture<KIND>::S x,
+                                           float r_f, float j_f, Acc* acc) {
+  // local carrier e^{-j theta} (scan.py:140-152)
+  const float cyc = mod1((pt.c0 + r_f * ep.ab) + j_f * ep.d_cyc);
+  float sn, cs;
+  sincosf(ep.two_pi * cyc, &sn, &cs);
+  float ib, qb;
+  Capture<KIND>::mix(x, cs, sn, &ib, &qb);
+  const double ib_d = (double)ib, qb_d = (double)qb;
+  const float rsm = r_f * ep.sm;
+  const float jd = j_f * ep.dsm;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const int at = table_pos<RUN>((pt.b[e] + rsm) + jd, pt.pos, ep.lm);
+#pragma unroll
+    for (int t = 0; t < TAPS; ++t) {
+      const int cv = ep.code[t * ep.stride + at];
+      acc[t * 6 + e].add(cv, ib, ib_d);
+      acc[t * 6 + 3 + e].add(cv, qb, qb_d);
+    }
+  }
+  if (WB) {
+    // the BOC(6,1) pilot at m = 12, its own coarse table and spacing; its
+    // table lies at code61 = code + off61 (a run's pos61 holds off61)
+    const float rsm61 = r_f * ep.sm61;
+    const float jd61 = j_f * ep.dsm61;
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      const int at =
+          table_pos<RUN>((pt.b61[e] + rsm61) + jd61, pt.pos61, ep.lm61);
+      const int cv = ep.code[RUN ? at : ep.off61 + at];
+      acc[12 + e].add(cv, ib, ib_d);
+      acc[15 + e].add(cv, qb, qb_d);
+    }
+  }
+}
+
+// A lone sample j (the slice's ragged ends, or every sample where the
+// epoch's indices may need the modulo): its own load, zero outside
+// [0, total), and its own coarse-table entries.
+template <int KIND, int TAPS, bool WB>
+__device__ __forceinline__ void add_lone(
+    const Epoch& ep, const typename Capture<KIND>::T* cap, long long cursor,
+    long long total, int j, Acc* acc) {
+  const typename Capture<KIND>::S x = Capture<KIND>::load(cap, cursor + j,
+                                                          total);
+  const int k = j / SPLIT;
+  Point pt;
+  pt.c0 = ep.carr[k] + ep.rem_cyc;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) pt.b[e] = ep.base[e] + ep.ck_frac[k];
+  pt.pos = ep.ck_int[k] - 1;
+  if (WB) {
+#pragma unroll
+    for (int e = 0; e < 3; ++e) pt.b61[e] = ep.base61[e] + ep.ck61_frac[k];
+    pt.pos61 = ep.ck61_int[k] - 1;
+  }
+  add_sample<KIND, TAPS, WB, false>(ep, pt, x, (float)(j % SPLIT), (float)j,
+                                    acc);
+}
+
+// One run's 16 bytes as loaded.  An int8 run: eight words from the two
+// aligned 16-byte loads that hold them, and the byte offset of its first
+// sample there.  A float32 or complex64 run, or a run at the capture's
+// edges, is read sample by sample (zero outside [0, total)) into the first
+// four words at offset 0: for 4 or 2 samples a run, the word select that
+// an unaligned vector costs more than the loads it saves
+// (tools/k1_loop_ab.py, variant runs_vec).
+struct RawRun {
+  uint32_t w[8];
+  int shift;
+};
+
+template <int KIND>
+__device__ __forceinline__ RawRun fetch_run(
+    const typename Capture<KIND>::T* cap, long long g0, long long total) {
+  using C = Capture<KIND>;
+  RawRun raw;
+  // <vector>
+  if (KIND == CAPTURE_INT8 && g0 >= 0 && g0 + C::RUN <= total) {
+  // </vector>
+    const uintptr_t a = reinterpret_cast<uintptr_t>(cap + g0);
+    const uint4* at = reinterpret_cast<const uint4*>(a & ~(uintptr_t)15);
+    raw.shift = (int)(a & 15);
+    // the second load only where the run spills into it: at offset 0 it
+    // could lie past the capture's last byte
+    const uint4 lo = __ldg(at), hi = __ldg(at + (raw.shift ? 1 : 0));
+    raw.w[0] = lo.x, raw.w[1] = lo.y, raw.w[2] = lo.z, raw.w[3] = lo.w;
+    raw.w[4] = hi.x, raw.w[5] = hi.y, raw.w[6] = hi.z, raw.w[7] = hi.w;
+  } else {
+    raw.shift = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) raw.w[i] = 0u;
+#pragma unroll
+    for (int i = 0; i < C::RUN; ++i) C::put(raw.w, i, cap, g0 + i, total);
+  }
+  return raw;
+}
+
+// The run's four words from the loaded eight: a word select by the word
+// offset, then, for int8, a funnel shift by the byte offset.
+template <int KIND>
+__device__ __forceinline__ void align_run(const RawRun& raw,
+                                          uint32_t (&v)[4]) {
+  const int q = raw.shift >> 2;
+  uint32_t u[6], t[5];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) u[i] = (q & 2) ? raw.w[i + 2] : raw.w[i];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) t[i] = (q & 1) ? u[i + 1] : u[i];
+  if (KIND == CAPTURE_INT8) {
+    const int b = (raw.shift & 3) * 8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = __funnelshift_r(t[i], t[i + 1], b);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = t[i];
+  }
+}
+
+// The RUN samples of the run that starts at j0 (a multiple of RUN, so
+// within one SPLIT segment): the coarse-table entries and the wraps once,
+// then each sample at j_f = j0 + i and r_f = j0 % SPLIT + i, exact float
+// adds (j < n_max < 2^24).
+template <int KIND, int TAPS, bool WB>
+__device__ __forceinline__ void add_run(const Epoch& ep, const RawRun& raw,
+                                        int j0, Acc* acc) {
+  using C = Capture<KIND>;
+  uint32_t v[4];
+  align_run<KIND>(raw, v);
+  const int k = j0 / SPLIT;
+  const float r0 = (float)(j0 % SPLIT), jf0 = (float)j0;
+  Point pt;
+  pt.c0 = ep.carr[k] + ep.rem_cyc;
+  const float ckf = ep.ck_frac[k];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) pt.b[e] = ep.base[e] + ckf;
+  pt.pos = run_pos((pt.b[1] + r0 * ep.sm) + jf0 * ep.dsm, ep.ck_int[k], ep.lm);
+  if (WB) {
+    const float ckf61 = ep.ck61_frac[k];
+#pragma unroll
+    for (int e = 0; e < 3; ++e) pt.b61[e] = ep.base61[e] + ckf61;
+    pt.pos61 = run_pos((pt.b61[1] + r0 * ep.sm61) + jf0 * ep.dsm61,
+                       ep.ck61_int[k], ep.lm61) + ep.off61;
+  }
+  // <samples>
+#pragma unroll
+  for (int i = 0; i < C::RUN; ++i)
+    add_sample<KIND, TAPS, WB, true>(ep, pt, C::sample(v, i), r0 + (float)i,
+                                     jf0 + (float)i, acc);
+  // </samples>
+}
+
+// This thread's share of the block's slice [lo, hi) of the epoch.  Where
+// `runs` holds, the threads take the slice's whole runs in turn (run i of
+// the slice to thread i % THREADS, so a warp's loads are 512 consecutive
+// bytes), each run loaded as it is summed: a load issued a run ahead
+// holds its registers through the run's body, where the 128 a thread may
+// have are all in use, and was slower (tools/k1_loop_ab.py, variant
+// ahead).  The ragged head and tail, under RUN samples each
+// (fused.py:rank_runs), go one sample a thread to the last threads, which
+// hold the fewest runs.  Elsewhere every sample is a lone one, strided
+// over the threads.
+template <int KIND, int TAPS, bool WB>
+__device__ __forceinline__ void sum_slice(
+    const Epoch& ep, const typename Capture<KIND>::T* cap, long long cursor,
+    long long total, int lo, int hi, bool runs, int tid, Acc* acc) {
+  constexpr int R = Capture<KIND>::RUN;
+  if (!runs) {
+    for (int j = lo + tid; j < hi; j += THREADS)
+      add_lone<KIND, TAPS, WB>(ep, cap, cursor, total, j, acc);
+    return;
+  }
+  const int ra = (lo + R - 1) / R, rb = hi / R;   // whole runs [ra, rb)
+  // <runs>
+  for (int run = ra + tid; run < rb; run += THREADS)
+    add_run<KIND, TAPS, WB>(
+        ep, fetch_run<KIND>(cap, cursor + (long long)run * R, total),
+        run * R, acc);
+  // </runs>
+  const int head = min(ra * R, hi), tail = max(rb * R, head);
+  const int i = THREADS - 1 - tid;
+  if (i < (head - lo) + (hi - tail))
+    add_lone<KIND, TAPS, WB>(ep, cap, cursor, total,
+                             i < head - lo ? lo + i : tail + (i - (head - lo)),
+                             acc);
 }
 
 template <int KIND>
@@ -375,7 +708,8 @@ track_fused_kernel(const typename Capture<KIND>::T* __restrict__ capture,
   int* s_ck61_int = reinterpret_cast<int*>(s_carr + p.k_max);
   float* s_ck61_frac = reinterpret_cast<float*>(s_ck61_int + k_wb);
   int8_t* s_code = reinterpret_cast<int8_t*>(s_ck61_frac + k_wb);
-  int8_t* s_code61 = s_code + p.n_taps * p.table_len;
+  const int stride = p.lm + 2 * SMEM_PAD;   // one tap's table, padded
+  int8_t* s_code61 = s_code + p.n_taps * stride;
 
   for (int i = tid; i < p.k_max; i += THREADS) {
     s_ck_int[i] = ck_int[i];
@@ -386,13 +720,17 @@ track_fused_kernel(const typename Capture<KIND>::T* __restrict__ capture,
     s_ck61_int[i] = ck61_int[i];
     s_ck61_frac[i] = ck61_frac[i];
   }
+  // the chip tables, each entry i of [-SMEM_PAD, lm + SMEM_PAD) the
+  // passed table's entry i mod lm
   const int8_t* code_c = code + (size_t)c * p.n_taps * p.table_len;
-  for (int i = tid; i < p.n_taps * p.table_len; i += THREADS)
-    s_code[i] = code_c[i];
+  for (int t = 0; t < p.n_taps; ++t)
+    for (int i = tid; i < stride; i += THREADS)
+      s_code[t * stride + i] =
+          code_c[t * p.table_len + CODE_PAD + wrap_entry(i, p.lm)];
   if (p.wideband) {
     const int8_t* code61_c = code61 + (size_t)c * p.table_len61;
-    for (int i = tid; i < p.table_len61; i += THREADS)
-      s_code61[i] = code61_c[i];
+    for (int i = tid; i < p.lm61 + 2 * SMEM_PAD; i += THREADS)
+      s_code61[i] = code61_c[CODE_PAD + wrap_entry(i, p.lm61)];
   }
   if (tid < 8) s_state[tid] = state_in[c * 8 + tid];
   if (tid == 0) *s_cursor = cursor_in[c];
@@ -427,58 +765,35 @@ track_fused_kernel(const typename Capture<KIND>::T* __restrict__ capture,
                              (rem_code + p.spacing61) * m61f};
     const float dsm = d_step * mf;
     const float dsm61 = d_step * m61f;
-    const bool once =
+    // whether this epoch's runs may take one wrap offset each (wraps_once,
+    // runs_fit): else every sample takes the modulo, the same result
+    constexpr int R = Capture<KIND>::RUN;
+    const bool runs =
         wraps_once(base[0], base[2], dsm, n, p.sm, p.lm) &&
+        runs_fit(base[0], base[2], dsm, p.sm, R) &&
         (!p.wideband ||
-         wraps_once(base61[0], base61[2], dsm61, n, p.sm61, p.lm61));
+         (wraps_once(base61[0], base61[2], dsm61, n, p.sm61, p.lm61) &&
+          runs_fit(base61[0], base61[2], dsm61, p.sm61, R)));
+    const Epoch ep = {rem_cyc, d_cyc, ab, p.two_pi, p.sm, dsm, p.sm61, dsm61,
+                      {base[0], base[1], base[2]},
+                      {base61[0], base61[1], base61[2]},
+                      p.lm, p.lm61, stride, p.n_taps * stride, s_carr,
+                      s_ck_int, s_ck_frac, s_ck61_int, s_ck61_frac, s_code};
 
+    // <loop>
     Acc acc[N_ACC];
 #pragma unroll
     for (int i = 0; i < N_ACC; ++i) acc[i].zero();
-
-    for (int j = lo + tid; j < hi; j += THREADS) {
-      const typename Capture<KIND>::S x =
-          Capture<KIND>::load(capture, cursor + j, total);
-      const int k = j / SPLIT;
-      const float r_f = (float)(j % SPLIT);
-      const float j_f = (float)j;
-      // local carrier e^{-j theta} (scan.py:140-152)
-      const float cyc = mod1(((s_carr[k] + rem_cyc) + r_f * ab) + j_f * d_cyc);
-      float sn, cs;
-      sincosf(p.two_pi * cyc, &sn, &cs);
-      float ib, qb;
-      Capture<KIND>::mix(x, cs, sn, &ib, &qb);
-      const double ib_d = (double)ib, qb_d = (double)qb;
-      const float rsm = r_f * p.sm;
-      const float jd = j_f * dsm;
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const int idx = chip_index(base[e], s_ck_frac[k], s_ck_int[k], rsm,
-                                   jd, p.lm, once);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          if (t < p.n_taps) {
-            const int cv = s_code[t * p.table_len + idx + CODE_PAD];
-            acc[t * 6 + e].add(cv, ib, ib_d);
-            acc[t * 6 + 3 + e].add(cv, qb, qb_d);
-          }
-        }
-      }
-      if (p.wideband) {
-        // the BOC(6,1) pilot at m = 12, its own coarse table and spacing
-        const float rsm61 = r_f * p.sm61;
-        const float jd61 = j_f * dsm61;
-#pragma unroll
-        for (int e = 0; e < 3; ++e) {
-          const int idx = chip_index(base61[e], s_ck61_frac[k],
-                                     s_ck61_int[k], rsm61, jd61, p.lm61,
-                                     once);
-          const int cv = s_code61[idx + CODE_PAD];
-          acc[12 + e].add(cv, ib, ib_d);
-          acc[15 + e].add(cv, qb, qb_d);
-        }
-      }
-    }
+    if (p.wideband)
+      sum_slice<KIND, 2, true>(ep, capture, cursor, total, lo, hi, runs, tid,
+                               acc);
+    else if (p.n_taps == 2)
+      sum_slice<KIND, 2, false>(ep, capture, cursor, total, lo, hi, runs,
+                                tid, acc);
+    else
+      sum_slice<KIND, 1, false>(ep, capture, cursor, total, lo, hi, runs,
+                                tid, acc);
+    // </loop>
 
     // the block's partials in float64: warp shuffles, then one partial
     // per warp, summed in warp order into this epoch's parity buffer
@@ -580,8 +895,8 @@ track_fused_kernel(const typename Capture<KIND>::T* __restrict__ capture,
 // wideband, and the int8 chip tables.
 static size_t smem_bytes(const TrackParams& p) {
   size_t b = HEAD_BYTES + (size_t)p.k_max * 12 +
-             (size_t)p.n_taps * p.table_len;
-  if (p.wideband) b += (size_t)p.k_max * 8 + (size_t)p.table_len61;
+             (size_t)p.n_taps * (p.lm + 2 * SMEM_PAD);
+  if (p.wideband) b += (size_t)p.k_max * 8 + (size_t)(p.lm61 + 2 * SMEM_PAD);
   return b;
 }
 

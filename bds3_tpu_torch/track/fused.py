@@ -12,9 +12,10 @@ tensors it runs the plain version, `scan.track_block_reference`; on CUDA
 tensors it launches the kernel or raises.  It never falls back.
 
 The host-side geometry the kernel mirrors lives here too, in plain
-Python, so the CPU tests reach it: the slices (`rank_slice`), the choice
-of S (`choose_cluster`), the chip-index range check (`wraps_once`,
-`chip_index_bound`) and the shared-memory layout (`_smem_bytes`).
+Python, so the CPU tests reach it: the slices (`rank_slice`) and their
+runs (`rank_runs`), the choice of S (`choose_cluster`), the chip-index
+range checks (`wraps_once`, `chip_index_bound`, `runs_fit`) and the
+shared-memory layout (`_smem_bytes`).
 """
 from __future__ import annotations
 
@@ -48,6 +49,10 @@ SMEM_LIMIT = 227 * 1024   # dynamic shared memory one H100 block may use
 # the capture dtypes the kernel reads, by its instance's code
 # (track_fused.cu CAPTURE_*); complex64 is read as interleaved float pairs
 CAPTURE_KINDS = {torch.int8: 0, torch.float32: 1, torch.complex64: 2}
+# samples of one run, the 16 bytes of one vector load, by capture dtype
+# (track_fused.cu Capture<KIND>::RUN)
+RUN_SAMPLES = {torch.int8: 16, torch.float32: 4, torch.complex64: 2}
+SMEM_PAD = 64   # circular padding of a chip table in shared memory
 THREADS = 512             # threads of one block (track_fused.cu THREADS)
 N_ACC = 18                # correlator sums (track_fused.cu N_ACC)
 # the block's bookkeeping (track_fused.cu HEAD_BYTES): warp partials and
@@ -98,11 +103,12 @@ def _table_len(cfg: TrackConfig, m: int) -> int:
 
 def _smem_bytes(cfg: TrackConfig) -> int:
     """One block's shared memory, all of it dynamic
-    (track_fused.cu:smem_bytes): the bookkeeping, then the tables."""
+    (track_fused.cu:smem_bytes): the bookkeeping, then the tables, each
+    padded by SMEM_PAD entries on either side."""
     b = HEAD_BYTES + cfg.k_max * 12 + (2 if cfg.use_pilot else 1) \
-        * _table_len(cfg, cfg.m_data)
+        * (cfg.code_length * cfg.m_data + 2 * SMEM_PAD)
     if cfg.wideband:
-        b += cfg.k_max * 8 + _table_len(cfg, cfg.m_p61)
+        b += cfg.k_max * 8 + cfg.code_length * cfg.m_p61 + 2 * SMEM_PAD
     return b
 
 
@@ -123,6 +129,14 @@ def rank_slice(n: int, cluster: int, rank: int) -> tuple[int, int]:
     chunk = -(-n // cluster)
     lo = min(n, rank * chunk)
     return lo, min(n, lo + chunk)
+
+
+def rank_runs(lo: int, hi: int, run: int) -> tuple[int, int]:
+    """The whole runs [ra, rb) of a slice [lo, hi) (track_fused.cu
+    sum_slice): run i holds the samples [i*run, (i+1)*run), so no run
+    crosses a SPLIT segment.  The slice's ragged head [lo, min(ra*run,
+    hi)) and tail [max(rb*run, ra*run), hi) go sample by sample."""
+    return -(-lo // run), hi // run
 
 
 def choose_cluster(counts: dict, n_channels: int) -> int:
@@ -146,6 +160,16 @@ def wraps_once(lo_m, hi_m, dsm, n, sm, lm) -> bool:
     f_lo = (f(lo_m) + min(dj, f(0))) - f(2)
     f_hi = (((f(hi_m) + f(1)) + f(SPLIT - 1) * f(sm)) + max(dj, f(0))) + f(2)
     return bool(f_lo >= f(1 - lm) and f_hi <= f(lm + 1))
+
+
+def runs_fit(lo_m, hi_m, dsm, sm, run: int) -> bool:
+    """track_fused.cu:runs_fit in float32: whether every raw chip index of
+    a run of `run` samples lies within SMEM_PAD of its first sample's
+    prompt index (so one wrap offset per run serves it), for a bank whose
+    early and late code phases times m are lo_m and hi_m."""
+    f = np.float32
+    span = (f(hi_m) - f(lo_m)) + f(run - 1) * (f(sm) + abs(f(dsm)))
+    return bool(span + f(2) <= f(SMEM_PAD))
 
 
 def banks(cfg: TrackConfig) -> list[tuple]:
@@ -178,6 +202,10 @@ def chip_index_bound(cfg: TrackConfig, rem_code: float = 1.0,
 
 @functools.lru_cache(maxsize=None)
 def _params(cfg: TrackConfig, n_channels: int) -> _Params:
+    if cfg.n_max >= 1 << 24:
+        # the kernel steps j and j % SPLIT as float32 by exact adds of 1
+        raise ValueError(f"{KERNEL_NAME}: an epoch window of {cfg.n_max} "
+                         f"samples is not below 2**24")
     names = slot_names(cfg)
     k = loop_constants(cfg)
     p = _Params(

@@ -266,6 +266,128 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                           setup.state, _cluster=32)
 
 
+# --- K1's sample loop at its edges, bit for bit -----------------------------
+# The kernel sums each epoch in runs of 16 capture bytes with one wrap of the
+# chip indices a run, and the rest sample by sample (csrc/track_fused.cu,
+# sum_slice); each case below holds every output, the state and the cursors
+# of a short block equal to the plain version's bits, for each instance.
+
+KINDS = ["int8", "float32", "complex64"]
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_block(kind, signal_="b2a"):
+    """A 4-epoch block's (capture, setup) of `kind`: B2a at 10 Msps or B1C
+    wideband at 30 Msps, both channels of SATS."""
+    if signal_ == "b2a":
+        s = b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6,
+                         track_mode=TrackMode.NARROWBAND)
+    else:
+        s = b1c_settings(sampling_freq=30e6, intermediate_freq=7.5e6,
+                         track_mode=TrackMode.WIDEBAND)
+    dev = torch.device("cuda")
+    if kind == "int8":
+        return _setup(dev, s.track_mode, 4, s)
+    return _setup_kind(dev, s, 4, kind)
+
+
+def _bits(x):
+    """float32 bits, every NaN as the one NaN (its payload is the
+    library's, not the algorithm's: an epoch of all-zero samples divides
+    0 by 0 in both versions)."""
+    return torch.where(torch.isnan(x), torch.full_like(x, float("nan")),
+                       x).view(torch.int32)
+
+
+def _assert_bits_equal(cfg, cap, setup, state, cluster=None):
+    st_k, rows_k = fused_track_block(cfg, cap, setup.tables, setup.consts,
+                                     state, _cluster=cluster)
+    st_r, rows_r = track_block_reference(cfg, cap, setup.tables,
+                                         setup.consts, state)
+    torch.cuda.synchronize()
+    assert torch.equal(st_k.cursor, st_r.cursor)
+    assert torch.equal(_bits(rows_k), _bits(rows_r)), \
+        int((_bits(rows_k) != _bits(rows_r)).sum())
+    assert torch.equal(_bits(st_k.statef), _bits(st_r.statef))
+
+
+@pytest.mark.parametrize("offset", range(16))
+@pytest.mark.parametrize("kind", KINDS)
+def test_k1_runs_at_every_capture_offset(cuda, kind, offset):
+    """The capture from element `offset` on (its first byte 0-15 bytes
+    past a 16-byte boundary, and every run's load as far off), the
+    cursors moved back to match."""
+    cap, setup = _edge_block(kind)
+    state = TrackState(setup.state.cursor - offset, setup.state.statef)
+    _assert_bits_equal(setup.cfg, cap[offset:], setup, state)
+
+
+@pytest.mark.parametrize("cluster", [1, 16])
+@pytest.mark.parametrize("n_max", [7, 16, 17, 40, 257])
+@pytest.mark.parametrize("kind", KINDS)
+def test_k1_rank_slices_shorter_than_a_run(cuda, kind, n_max, cluster):
+    """Epochs summed over their first n_max samples only: rank slices of
+    0 to 17 samples, with no whole run, a run and ragged ends, or ragged
+    ends alone.  (From 7 samples: a single int8 sample can sum to 0 and
+    send the loop to NaN, whose epoch length the two versions convert to
+    int differently.)"""
+    cap, setup = _edge_block(kind)
+    cfg = dataclasses.replace(setup.cfg, n_max=n_max)
+    _assert_bits_equal(cfg, cap, setup, setup.state, cluster)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_k1_slice_crossing_a_split_boundary(cuda, kind):
+    """Two ranks over 8,180 samples: rank 1's slice starts 6 samples
+    before the SPLIT boundary 4,096 (a ragged head, then runs from the
+    next coarse-table segment) and both slices cross one."""
+    cap, setup = _edge_block(kind)
+    assert 2 * SPLIT - 12 < int(setup.cfg.q0_int)
+    cfg = dataclasses.replace(setup.cfg, n_max=2 * SPLIT - 12)
+    _assert_bits_equal(cfg, cap, setup, setup.state, 2)
+
+
+@pytest.mark.parametrize("where", ["before_0", "past_total"])
+@pytest.mark.parametrize("signal_", ["b2a", "b1c_wb"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_k1_zero_fill_at_the_capture_edges(cuda, kind, signal_, where):
+    """Epochs that reach before sample 0 (cursors 5,003 samples early) or
+    past the capture's end (the capture cut 5,003 samples into the last
+    epoch of the channel that starts last): the samples outside read as
+    zero, runs that straddle an edge included."""
+    cap, setup = _edge_block(kind, signal_)
+    state = setup.state
+    if where == "before_0":
+        state = TrackState(state.cursor - int(state.cursor.min()) - 5003,
+                           state.statef)
+    else:
+        epochs = setup.cfg.epochs_per_block
+        cap = cap[:int(state.cursor.max()) + (epochs - 1) * setup.cfg.q0_int
+                  + 5003]
+    _assert_bits_equal(setup.cfg, cap, setup, state)
+
+
+@pytest.mark.parametrize("signal_", ["b2a", "b1c_wb"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_k1_modulo_outside_wraps_once(cuda, kind, signal_):
+    """A code phase thousands of chips outside the loop's normal range
+    (6,500 chips of B2a's 10,230, 10,150 of B1C's), so the chip indices
+    may leave (-L*m, 2*L*m): every sample takes the modulo instead of the
+    runs' wrap, and the epochs are short."""
+    from bds3_tpu_torch.track.fused import banks, wraps_once
+
+    cap, setup = _edge_block(kind, signal_)
+    cfg = setup.cfg
+    rem = 6500.0 if signal_ == "b2a" else 10150.0
+    statef = setup.state.statef.clone()
+    statef[:, 0] = rem
+    m, spacing, sm, _ = banks(cfg)[0]
+    assert not wraps_once((rem - spacing) * m, (rem + spacing) * m, 0.0,
+                          cfg.n_max, sm, cfg.code_length * m)
+    _assert_bits_equal(cfg, cap, setup, TrackState(setup.state.cursor,
+                                                   statef))
+
+
 def _prefix_args(dev, n=5 * SPLIT + 77):
     total = 60_000
     cursor = np.array([0, 23_456, total - 9000])

@@ -21,10 +21,14 @@ from bds3_tpu_torch.track import driver, scan
 from bds3_tpu_torch.track.fused import (
     CLUSTER_SIZES,
     DSTEP_REL,
+    RUN_SAMPLES,
+    THREADS,
     banks,
     chip_index_bound,
     choose_cluster,
+    rank_runs,
     rank_slice,
+    runs_fit,
     wraps_once,
 )
 from bds3_tpu_torch.track.state import SPLIT, ChannelInit, make_track_config
@@ -195,13 +199,43 @@ def test_derived_bound_keeps_the_raw_index_in_range(make):
                           cfg.n_max, sm, lm)
 
 
+@pytest.mark.parametrize("make", [
+    lambda: b2a_settings(),                                   # 99.375 Msps
+    lambda: b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6),
+    lambda: b1c_settings(),                                   # the preset
+    lambda: b1c_settings(track_mode=TrackMode.NARROWBAND),
+    lambda: b1c_settings(sampling_freq=30e6, intermediate_freq=7.5e6),
+    lambda: b1c_settings(sampling_freq=6e6, intermediate_freq=1.5e6,
+                         track_mode=TrackMode.NARROWBAND),
+], ids=["b2a_99msps", "b2a_10msps", "b1c_wb_preset", "b1c_nb_99msps",
+        "b1c_wb_30msps", "b1c_nb_6msps"])
+@pytest.mark.parametrize("dtype", list(RUN_SAMPLES))
+def test_runs_fit_at_the_normal_range(make, dtype):
+    """At the loop state's normal range (|rem_code| <= 1 chip, |d_step| <=
+    DSTEP_REL of the nominal step) every bank's runs fit the shared-memory
+    padding (runs_fit), so each run takes one wrap and these configs never
+    fall back to the modulo; a run that moves by more does not fit."""
+    cfg = make_track_config(make())
+    run = RUN_SAMPLES[dtype]
+    for m, spacing, sm, _ in banks(cfg):
+        for rem in (-1.0, 1.0):
+            for sgn in (-1.0, 1.0):
+                dsm = sgn * DSTEP_REL * cfg.step_base * m
+                assert runs_fit((rem - spacing) * m, (rem + spacing) * m,
+                                dsm, sm, run)
+        assert not runs_fit(-spacing * m, spacing * m, 64.0 / (run - 1),
+                            sm, run)
+
+
 # --- the cluster's float64 sums round to the plain version's rows ------------
 
-def _cluster_sum(cluster, blk_log):
+def _cluster_sum(cluster, blk_log, run=None):
     """scan._sum_rounded as the kernel sums: each channel's first n =
     min(blksize, n_max) products cut into `cluster` contiguous slices
     (rank_slice), each slice summed in float64, the slices added in rank
-    order from 0.0, the total rounded to float32 once."""
+    order from 0.0, the total rounded to float32 once.  With `run` None a
+    slice is summed by numpy; else as the kernel's threads sum it
+    (_slice_by_threads)."""
     def sum_rounded(x):
         n_ch = blk_log[-1].clamp(max=x.shape[1]).tolist()
         xs = x.numpy().astype(np.float64)
@@ -210,10 +244,42 @@ def _cluster_sum(cluster, blk_log):
             total = 0.0
             for rank in range(cluster):
                 lo, hi = rank_slice(n, cluster, rank)
-                total += float(xs[c, lo:hi].sum())
+                total += float(xs[c, lo:hi].sum()) if run is None \
+                    else _slice_by_threads(xs[c], lo, hi, run)
             out[c] = np.float32(total)
         return torch.from_numpy(out)
     return sum_rounded
+
+
+def _slice_by_threads(x, lo, hi, run):
+    """One block's float64 sum of x[lo:hi] in the kernel's order
+    (track_fused.cu sum_slice): thread t adds the samples of the slice's
+    whole runs t, t + THREADS, ... (rank_runs) in order, then its ragged
+    sample (head then tail, the i-th to thread THREADS-1-i); each warp's
+    32 sums are added by shuffles down 16, 8, 4, 2, 1, and the warps'
+    sums in warp order from 0.0."""
+    ra, rb = rank_runs(lo, hi, run)
+    head = min(ra * run, hi)
+    tail = max(rb * run, head)
+    rounds = -(-(rb - ra) // THREADS)
+    runs = np.full(rounds * THREADS, -1, np.int64)
+    runs[:rb - ra] = np.arange(ra, rb)
+    j = runs.reshape(rounds, THREADS)[:, None, :] * run \
+        + np.arange(run)[None, :, None]                 # (round, i, thread)
+    j = j.reshape(rounds * run, THREADS)
+    terms = np.where(j >= 0, x[np.maximum(j, 0)], 0.0)
+    acc = np.zeros(THREADS)
+    for row in terms:
+        acc += row
+    ragged = np.r_[lo:head, tail:hi]
+    acc[THREADS - 1 - np.arange(len(ragged))] += x[ragged]
+    warps = acc.reshape(THREADS // 32, 32).copy()
+    for o in (16, 8, 4, 2, 1):
+        warps[:, :32 - o] += warps[:, o:]
+    total = 0.0
+    for v in warps[:, 0]:
+        total += v
+    return total
 
 
 @pytest.fixture(scope="module")
@@ -223,15 +289,22 @@ def b1c_wb_block():
     return _block(s)
 
 
-@pytest.mark.parametrize("cluster", [2, 8, 16])
-def test_cluster_float64_sums_round_to_the_plain_rows(b1c_wb_block, cluster,
-                                                      monkeypatch):
+@pytest.mark.parametrize("run,cluster", [
+    pytest.param(None, 2, id="2"), pytest.param(None, 8, id="8"),
+    pytest.param(None, 16, id="16")] + [
+    pytest.param(RUN_SAMPLES[dt], cluster,
+                 id=f"runs{RUN_SAMPLES[dt]}-{cluster}")
+    for dt in RUN_SAMPLES for cluster in (2, 8, 16)])
+def test_cluster_float64_sums_round_to_the_plain_rows(b1c_wb_block, run,
+                                                      cluster, monkeypatch):
     """A numpy emulation of the kernel's sums (S slices, each in float64,
     combined in rank order, rounded once) in place of the plain version's
     float64 row sum, over the closed-loop 20-epoch B1C wideband block at
     30 Msps: every row value within one float32 ulp of the plain
     version's (both round a float64 sum of the same float32 terms once;
-    only a sum that lies within ~1e-12 of a rounding boundary can differ)."""
+    only a sum that lies within ~1e-12 of a rounding boundary can differ).
+    Each slice summed whole, and as the kernel's threads sum it in runs of
+    16, 4 and 2 samples (the int8, float32 and complex64 instances)."""
     cap, setup, rows = b1c_wb_block
     blk_log = []
     plain_blksize = scan._blksize
@@ -242,7 +315,8 @@ def test_cluster_float64_sums_round_to_the_plain_rows(b1c_wb_block, cluster,
         return delta, blk
 
     monkeypatch.setattr(scan, "_blksize", logged_blksize)
-    monkeypatch.setattr(scan, "_sum_rounded", _cluster_sum(cluster, blk_log))
+    monkeypatch.setattr(scan, "_sum_rounded",
+                        _cluster_sum(cluster, blk_log, run))
     _, got = scan.track_block_reference(setup.cfg, cap, setup.tables,
                                         setup.consts, setup.state)
     assert len(blk_log) == setup.cfg.epochs_per_block

@@ -18,19 +18,24 @@
 // chosen by the dtype code the wrapper passes.  Everything after the mix
 // is the same for the three.
 //
-// Design.  One thread-block cluster of S blocks per channel, S chosen on
-// the host (fused.py:cluster_size): the largest of 16, 8, 4, 2, 1 for which
-// the card holds all C clusters at once, so no epoch waits for a second
-// wave.  The W epochs are a loop inside every block: each epoch's window
-// and chip indices depend on the previous epoch's loop-filter output, so
-// the epochs of a channel are a chain (on the TPU they were the sequential
-// grid axis); the samples within an epoch are not, and the cluster splits
-// them.  Every block loads its channel's chip tables and coarse tables
-// into its own shared memory and keeps its own copy of the loop state (8
-// floats and an int64 absolute cursor).  Per epoch, every block computes
-// the epoch length n from that state, and cluster rank r takes the
-// contiguous slice [r*ceil(n/S), min(n, (r+1)*ceil(n/S))) of the epoch's
-// samples (fused.py:rank_slice), which keeps the capture reads coalesced.
+// Design.  S = floor(B / C) blocks per channel (fused.py:choose_blocks),
+// B the blocks of this instance the card holds at once (one an SM; 13 a
+// channel for 10 channels on the H100's 132 SMs), all resident at once so
+// that no epoch waits for a second wave: where S >= 2 the grid is launched
+// with the cooperative attribute, so the launch fails rather than hangs
+// if they cannot all be resident.  Where C > B/2, S = 1: one block a
+// channel, no launch attribute, and no block waits for another.  Block b
+// is rank b % S of channel b / S.  The W epochs are a loop inside every
+// block: each epoch's window and chip indices depend on the previous
+// epoch's loop-filter output, so the epochs of a channel are a chain (on
+// the TPU they were the sequential grid axis); the samples within an
+// epoch are not, and the channel's S blocks split them.  Every block
+// loads its channel's chip tables and coarse tables into its own shared
+// memory and keeps its own copy of the loop state (8 floats and an int64
+// absolute cursor).  Per epoch, every block computes the epoch length n
+// from that state, and rank r takes the contiguous slice [r*ceil(n/S),
+// min(n, (r+1)*ceil(n/S))) of the epoch's samples (fused.py:rank_slice),
+// which keeps the capture reads coalesced.
 // Its threads walk the slice in runs: run i holds the samples [i*R,
 // (i+1)*R) of the epoch, R = 16 bytes of capture (16 int8, 4 float32 or 2
 // complex64 samples, Capture<KIND>::RUN), so no run crosses a SPLIT
@@ -49,20 +54,27 @@
 // ragged head and tail (under R samples each) and runs at the capture's
 // edges are read sample by sample, zero outside [0, total).  The
 // block reduces its threads' sums in float64 (warp shuffles, then one
-// partial per warp) and writes its 18 partials into its own shared memory,
-// double-buffered by epoch parity; then one cluster barrier.  After it,
-// threads 0..17 of every block read the S blocks' partials through
-// distributed shared memory, in rank order, and add them in float64; each
-// sum is rounded to float32 once.  Thread 0 of every block then runs the
-// discriminators, the 3rd-order PLL and 2nd-order DLL and the phase
-// remainders on the same values in the same order, so every block holds
-// bit-identical state without a broadcast or a second cluster barrier;
-// rank 0 alone writes the packed output row, the final state and the
-// cursor.  One barrier per epoch is safe because of the double buffer: a
-// block overwrites parity p in epoch w+2 only after every block has passed
-// the barrier of epoch w+1, which each reaches after its reads of epoch w.
-// A last cluster barrier keeps every block alive until the others have
-// read its shared memory.  S = 1 is one block per channel.
+// partial per warp) and writes its 18 partials to a global buffer (C, 2,
+// S, 18), double-buffered by epoch parity, for the epoch's one exchange:
+// thread 0 makes a release increment of the channel's arrival counter
+// and spins with acquire loads until it reaches S * (w + 1) (the wrapper
+// zeroes the counters for each launch; exchange(), below, on the wait's
+// limit), and threads 0..17 read the S partials, with loads that bypass
+// L1, in rank order and add them in float64; each sum is rounded to
+// float32 once.  Thread 0 of every block then runs the discriminators,
+// the 3rd-order PLL and 2nd-order DLL and the phase remainders on the
+// same values in the same order, so every block holds bit-identical state
+// without a broadcast or a second exchange; rank 0 alone writes the
+// packed output row, the final state and the cursor.  One exchange per
+// epoch is safe because of the double buffer: a block overwrites parity p
+// in epoch w+2 only after every block has passed the exchange of epoch
+// w+1, which each reaches after its reads of epoch w.  The partials live
+// in global memory, which outlives the blocks, so no block waits for the
+// others at the end.  Not thread-block clusters exchanging through
+// distributed shared memory: a cluster cannot span two GPCs, so on the
+// H100 the largest size that holds every channel leaves SMs idle (52 of
+// 132 at 10 channels), and that layout was faster at no shape measured
+// (PERF.md).
 //
 // Sums.  Every chip table entry is +1 or -1 (the tables are checked by
 // tests/test_torch_fused_geometry.py), so a product cv*x is exactly +-x:
@@ -108,17 +120,20 @@
 // it; the modulo is x - truncf(x), the chip index's ceil and conversion
 // one float add, the int8 conversion a byte permute and a float add, all
 // exact.  Spread over C*S SMs, the per-sample work shrinks by S; what does
-// not shrink is the per-epoch chain: one block reduction, one cluster
-// barrier, the distributed partial reads and the scalar tail, W times per
-// launch (4-10 us an epoch on the H100, PERF.md).  Capturing short blocks
-// in a CUDA graph is later work.  None of the TPU kernel's machinery is
+// not shrink is the per-epoch chain: one block reduction, the exchange
+// (the arrival counter and S reads from L2) and the scalar tail, W times
+// per launch (4-10 us an epoch on the H100, PERF.md).  So more blocks pay
+// where a thread walks many samples an epoch (B1C at 99.375 Msps: 13
+// blocks a channel walk 10 runs a thread where 8 walked 16) and little
+// where it walks few (B2a: two runs a thread at 8 blocks or 11).
+// Capturing short blocks in a CUDA graph is later work.  None of the TPU kernel's machinery is
 // carried over (prefix scratch, MXU one-hot selects, boundary tiles, the
 // 4096-aligned DMA ring): the direct sum here is the same sum as its
 // bucket form, regrouped (scan.py:171-173).
 //
 // Shared memory of one block (fused.py:_smem_bytes mirrors it): the warp
-// partials (16 x 18 float64), the cluster partials (2 x 18 float64), the
-// cursor, the state and the 18 rounded sums (2,704 bytes in all), then
+// partials (16 x 18 float64), the cursor, the state and the 18 rounded
+// sums (2,416 bytes in all), then
 // the coarse tables and the carrier table (int32 + 2 float32 per entry),
 // the BOC(6,1) coarse tables where wideband, and the int8 chip tables,
 // each padded by SMEM_PAD entries on either side: at the B1C preset
@@ -153,11 +168,8 @@
 //    where one float32 ulp is 6e-5 of a table entry, so it must round as the
 //    plain version's does: the same operations in the same order.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 #define N_CANON 41   // values one epoch produces (see TrackParams.slot)
 #define MAX_TAPS 3   // data, pilot BOC(1,1), pilot BOC(6,1)
@@ -173,9 +185,10 @@ namespace cg = cooperative_groups;
 #define CEIL_MAGIC 12582912.0f
 #define CEIL_MAGIC_BITS 0x4B400000
 // the block's bookkeeping at the front of its shared memory: warp
-// partials, cluster partials by epoch parity (float64), the cursor, the
-// state and the rounded sums
-#define HEAD_BYTES (N_WARPS * N_ACC * 8 + 2 * N_ACC * 8 + 8 + 8 * 4 + N_ACC * 4)
+// partials (float64), the cursor, the state and the rounded sums
+#define HEAD_BYTES (N_WARPS * N_ACC * 8 + 8 + 8 * 4 + N_ACC * 4)
+// the longest a block waits at an exchange before it traps (exchange())
+#define WAIT_LIMIT_NS 2000000000ull
 
 // canonical value indices (fused.py:_CANON)
 #define V_D 0        // data I_E I_P I_L Q_E Q_P Q_L
@@ -669,6 +682,48 @@ __device__ __forceinline__ void sum_slice(
                              acc);
 }
 
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The exchange at one epoch: the block's partials are written; thread 0
+// adds the block's arrival to its channel's counter with release
+// semantics and waits, with acquire loads, until all S blocks of the
+// channel have arrived at this epoch (`want` = S * (w + 1)).  The barriers
+// on either side order the other threads' writes before the release and
+// their reads after the acquire.  All S blocks are resident (the
+// cooperative launch sees to it, and at S = 1 a block waits only for its
+// own arrival), so a block waits at most for the slowest rank of its
+// channel to finish the same epoch: tens of microseconds at the presets,
+// and about 12 ms for the longest epoch a block can be given (n_max under
+// 2^24 samples, fused._params, at about 1.3 SM cycles a sample, PERF.md),
+// or a few of the card's time slices where contexts share it.  A wait of
+// WAIT_LIMIT_NS, 2 s, is then no slow run but a fault of this code, and
+// it traps rather than leave the card spinning for good.  A trap ends the process's CUDA
+// context: every later CUDA call of the process fails.  A run stopped in
+// a debugger while inside the kernel, or a context held off the card
+// that long, would trip it too.
+__device__ __forceinline__ void exchange(unsigned* arrived, unsigned want) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
+                 :: "l"(arrived) : "memory");
+    const unsigned long long t0 = globaltimer();
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(seen) : "l"(arrived) : "memory");
+      if (seen < want && globaltimer() - t0 > WAIT_LIMIT_NS) __trap();
+    } while (seen < want);
+  }
+  __syncthreads();
+}
+
+// S blocks a channel (Design, above), exchanging each epoch's partials
+// through `xch` (C, 2, S, N_ACC) and the arrival counters `arrived` (C,),
+// zero at the launch.
 template <int KIND>
 __global__ void __launch_bounds__(THREADS)
 track_fused_kernel(const typename Capture<KIND>::T* __restrict__ capture,
@@ -688,17 +743,18 @@ track_fused_kernel(const typename Capture<KIND>::T* __restrict__ capture,
                    float* __restrict__ out,               // (W, C, n_slots)
                    float* __restrict__ state_out,         // (C, 8)
                    long long* __restrict__ cursor_out,    // (C,)
+                   double* __restrict__ xch,              // (C, 2, S, N_ACC)
+                   unsigned* __restrict__ arrived,        // (C,)
                    const TrackParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int S = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int c = blockIdx.x / S;
+  // S blocks a channel; block b is rank b % S of channel b / S
+  const int S = (int)gridDim.x / p.n_channels;
+  const int rank = (int)blockIdx.x % S;
+  const int c = (int)blockIdx.x / S;
   const int tid = threadIdx.x;
 
   double* s_part = reinterpret_cast<double*>(smem);    // [N_WARPS][N_ACC]
-  double* s_rank = s_part + N_WARPS * N_ACC;           // [2][N_ACC]
-  long long* s_cursor = reinterpret_cast<long long*>(s_rank + 2 * N_ACC);
+  long long* s_cursor = reinterpret_cast<long long*>(s_part + N_WARPS * N_ACC);
   float* s_state = reinterpret_cast<float*>(s_cursor + 1);   // [8]
   float* s_sum = s_state + 8;                                // [N_ACC]
   const int k_wb = p.wideband ? p.k_max : 0;
@@ -805,19 +861,21 @@ track_fused_kernel(const typename Capture<KIND>::T* __restrict__ capture,
       if ((tid & 31) == 0) s_part[(tid >> 5) * N_ACC + i] = v;
     }
     __syncthreads();
-    double* mine = s_rank + (w & 1) * N_ACC;
+    // the epoch's partials of the channel's ranks, by epoch parity; this
+    // block's go to row `rank`
+    double* part = xch + ((size_t)c * 2 + (w & 1)) * S * N_ACC;
     if (tid < N_ACC) {
       double v = 0.0;
       for (int wi = 0; wi < N_WARPS; ++wi) v += s_part[wi * N_ACC + tid];
-      mine[tid] = v;
+      part[rank * N_ACC + tid] = v;
     }
-    cluster.sync();
+    exchange(arrived + c, (unsigned)(S * (w + 1)));
 
     if (tid < 32) {
-      // the cluster's partials in rank order, rounded once
+      // the channel's partials in rank order, rounded once
       if (tid < N_ACC) {
         double v = 0.0;
-        for (int q = 0; q < S; ++q) v += cluster.map_shared_rank(mine, q)[tid];
+        for (int q = 0; q < S; ++q) v += __ldcg(part + q * N_ACC + tid);
         s_sum[tid] = (float)v;
       }
       __syncwarp();
@@ -881,8 +939,6 @@ track_fused_kernel(const typename Capture<KIND>::T* __restrict__ capture,
     __syncthreads();
   }
 
-  // no block leaves while another may still read its partials
-  cluster.sync();
   if (rank == 0) {
     if (tid < 8) state_out[c * 8 + tid] = s_state[tid];
     if (tid == 0) cursor_out[c] = *s_cursor;
@@ -902,67 +958,39 @@ static size_t smem_bytes(const TrackParams& p) {
 
 template <int KIND>
 static cudaError_t set_attributes(size_t smem) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      track_fused_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  // clusters of 16 are beyond the portable 8
   return cudaFuncSetAttribute(track_fused_kernel<KIND>,
-                              cudaFuncAttributeNonPortableClusterSizeAllowed,
-                              1);
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
-// C*S blocks of THREADS threads as C clusters of S blocks.
-static cudaLaunchConfig_t launch_config(const TrackParams& p, int cluster,
-                                        size_t smem, cudaStream_t stream,
-                                        cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.n_channels * cluster, 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
+// The blocks of the instance of capture kind `kind` the card holds at once
+// with this config's shared memory and block size (blocks an SM times the
+// SMs).  Returns 0, or the error of setting the kernel's attributes or of
+// a query.
 template <int KIND>
-static int occupancy(const TrackParams& p, int n_sizes, const int* sizes,
-                     int* counts) {
+static int occupancy(const TrackParams& p, int* resident) {
   const size_t smem = smem_bytes(p);
-  const cudaError_t err = set_attributes<KIND>(smem);
-  if (err != cudaSuccess) return (int)err;
-  for (int i = 0; i < n_sizes; ++i) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = launch_config(p, sizes[i], smem, 0, &attr);
-    int n = 0;
-    const cudaError_t e =
-        cudaOccupancyMaxActiveClusters(&n, track_fused_kernel<KIND>, &cfg);
-    counts[i] = e == cudaSuccess ? n : -(int)e;
-    cudaGetLastError();   // a refused size is an answer, not a fault
-  }
-  return 0;
+  cudaError_t err = set_attributes<KIND>(smem);
+  int per_sm = 0, sms = 0, dev = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, track_fused_kernel<KIND>, THREADS, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *resident = per_sm * sms;
+  return (int)err;
 }
 
-// For each cluster size sizes[i], how many clusters of it the card holds
-// at once with this config's shared memory and block size for the
-// instance of capture kind `kind` (cudaOccupancyMaxActiveClusters);
-// -(error code) where the query fails (a size the card does not take).
-// Returns 0, or the error of setting the kernel's attributes.
-extern "C" int bds3_track_cluster_occupancy(const TrackParams* params,
-                                            int kind, int n_sizes,
-                                            const int* sizes, int* counts) {
+extern "C" int bds3_track_occupancy(const TrackParams* params, int kind,
+                                    int* resident) {
   switch (kind) {
     case CAPTURE_INT8:
-      return occupancy<CAPTURE_INT8>(*params, n_sizes, sizes, counts);
+      return occupancy<CAPTURE_INT8>(*params, resident);
     case CAPTURE_FLOAT32:
-      return occupancy<CAPTURE_FLOAT32>(*params, n_sizes, sizes, counts);
+      return occupancy<CAPTURE_FLOAT32>(*params, resident);
     case CAPTURE_COMPLEX64:
-      return occupancy<CAPTURE_COMPLEX64>(*params, n_sizes, sizes, counts);
+      return occupancy<CAPTURE_COMPLEX64>(*params, resident);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -974,14 +1002,23 @@ static int launch(const void* capture, long long total, const void* code,
                   const void* carr_t, const void* a_base, const void* q0_cyc,
                   const void* init_dstep, const void* state_in,
                   const void* cursor_in, void* out, void* state_out,
-                  void* cursor_out, int cluster, const TrackParams& p,
-                  void* stream) {
+                  void* cursor_out, int blocks, void* xch, void* arrived,
+                  const TrackParams& p, void* stream) {
   const size_t smem = smem_bytes(p);
   cudaError_t err = set_attributes<KIND>(smem);
   if (err != cudaSuccess) return (int)err;
+  // C*S blocks of THREADS threads; cooperative where S >= 2, so that the
+  // launch is refused if they cannot all be resident at once
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.n_channels * blocks, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config(p, cluster, smem, (cudaStream_t)stream, &attr);
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = blocks >= 2 ? 1 : 0;
   err = cudaLaunchKernelEx(
       &cfg, track_fused_kernel<KIND>,
       (const typename Capture<KIND>::T*)capture, total, (const int8_t*)code,
@@ -989,7 +1026,8 @@ static int launch(const void* capture, long long total, const void* code,
       (const int*)ck61_int, (const float*)ck61_frac, (const float*)carr_t,
       (const float*)a_base, (const float*)q0_cyc, (const float*)init_dstep,
       (const float*)state_in, (const long long*)cursor_in, (float*)out,
-      (float*)state_out, (long long*)cursor_out, p);
+      (float*)state_out, (long long*)cursor_out, (double*)xch,
+      (unsigned*)arrived, p);
   if (err != cudaSuccess) {
     cudaGetLastError();   // reported here; not left for the next launch
     return (int)err;
@@ -998,9 +1036,10 @@ static int launch(const void* capture, long long total, const void* code,
 }
 
 // Host entry point, called through ctypes.  Launches the instance of
-// capture kind `kind` as C clusters of `cluster` blocks on `stream` and
-// does not synchronize; returns the launch's error, else
-// cudaGetLastError() (0 on success).
+// capture kind `kind` with `blocks` blocks a channel on `stream`,
+// exchanging through `xch` (C * 2 * blocks * 18 float64) and `arrived` (C
+// uint32 counters, zero).  Does not synchronize; returns the launch's
+// error, else cudaGetLastError() (0 on success).
 extern "C" int bds3_track_fused(const void* capture, long long total,
                                 int kind, const void* code,
                                 const void* ck_int, const void* ck_frac,
@@ -1010,15 +1049,15 @@ extern "C" int bds3_track_fused(const void* capture, long long total,
                                 const void* init_dstep, const void* state_in,
                                 const void* cursor_in, void* out,
                                 void* state_out, void* cursor_out,
-                                int cluster, const TrackParams* params,
-                                void* stream) {
+                                int blocks, void* xch, void* arrived,
+                                const TrackParams* params, void* stream) {
   switch (kind) {
 #define LAUNCH(K)                                                          \
   case K:                                                                  \
     return launch<K>(capture, total, code, ck_int, ck_frac, code61,        \
                      ck61_int, ck61_frac, carr_t, a_base, q0_cyc,          \
                      init_dstep, state_in, cursor_in, out, state_out,      \
-                     cursor_out, cluster, *params, stream);
+                     cursor_out, blocks, xch, arrived, *params, stream);
     LAUNCH(CAPTURE_INT8)
     LAUNCH(CAPTURE_FLOAT32)
     LAUNCH(CAPTURE_COMPLEX64)

@@ -2,18 +2,20 @@
 `bds3_tpu/track/pallas_fused.py`).
 
 `fused_track_block` runs one block of W closed-loop epochs for all
-channels in one launch of `csrc/track_fused.cu` (design notes there): C
-thread-block clusters of S blocks, one cluster per channel, each block
-summing a contiguous slice of every epoch (`rank_slice`).  S is chosen
-once per (config, channel count) from the card's own occupancy answer
-(`cluster_size`).  The capture is real int8, real float32 or complex64
-(`CAPTURE_KINDS`), each read by its own instance of the kernel.  On CPU
-tensors it runs the plain version, `scan.track_block_reference`; on CUDA
-tensors it launches the kernel or raises.  It never falls back.
+channels in one launch of `csrc/track_fused.cu` (design notes there): S
+blocks per channel, each summing a contiguous slice of every epoch
+(`rank_slice`) and exchanging each epoch's partials through global
+memory; C*S blocks, launched cooperatively where S >= 2.  S is chosen
+once per (config, channel count, capture dtype) from the card's own
+occupancy answer (`blocks_per_channel`, `choose_blocks`).  The capture
+is real int8, real float32 or complex64 (`CAPTURE_KINDS`), each read by
+its own instance of the kernel.  On CPU tensors it runs the plain
+version, `scan.track_block_reference`; on CUDA tensors it launches the
+kernel or raises.  It never falls back.
 
 The host-side geometry the kernel mirrors lives here too, in plain
 Python, so the CPU tests reach it: the slices (`rank_slice`) and their
-runs (`rank_runs`), the choice of S (`choose_cluster`), the chip-index
+runs (`rank_runs`), the choice of S (`choose_blocks`), the chip-index
 range checks (`wraps_once`, `chip_index_bound`, `runs_fit`) and the
 shared-memory layout (`_smem_bytes`).
 """
@@ -40,7 +42,7 @@ from bds3_tpu_torch.track.scan import (
 )
 from bds3_tpu_torch.track.state import SPLIT, TrackConfig
 from bds3_tpu_torch.utils.device import check_tensor
-from bds3_tpu_torch.utils.trace import mirror, span
+from bds3_tpu_torch.utils.trace import count, mirror, span
 
 KERNEL_NAME = "track_fused_cuda"
 SOURCE = "bds3_tpu_torch/csrc/track_fused.cu"
@@ -55,12 +57,9 @@ RUN_SAMPLES = {torch.int8: 16, torch.float32: 4, torch.complex64: 2}
 SMEM_PAD = 64   # circular padding of a chip table in shared memory
 THREADS = 512             # threads of one block (track_fused.cu THREADS)
 N_ACC = 18                # correlator sums (track_fused.cu N_ACC)
-# the block's bookkeeping (track_fused.cu HEAD_BYTES): warp partials and
-# cluster partials by epoch parity in float64, the cursor, the state and
-# the rounded sums
-HEAD_BYTES = (THREADS // 32) * N_ACC * 8 + 2 * N_ACC * 8 + 8 + 8 * 4 \
-    + N_ACC * 4
-CLUSTER_SIZES = (16, 8, 4, 2, 1)   # the cluster sizes tried, largest first
+# the block's bookkeeping (track_fused.cu HEAD_BYTES): warp partials in
+# float64, the cursor, the state and the rounded sums
+HEAD_BYTES = (THREADS // 32) * N_ACC * 8 + 8 + 8 * 4 + N_ACC * 4
 # the loop state's normal range, under which every raw chip index of an
 # epoch lies in (-L*m, 2*L*m): |rem_code| < 1 chip (ChannelState) and the
 # code rate within DSTEP_REL of nominal (a 10 kHz Doppler is 8.5e-6 on
@@ -122,11 +121,11 @@ def cuda_supported(cfg: TrackConfig) -> bool:
     return _smem_bytes(cfg) <= SMEM_LIMIT
 
 
-def rank_slice(n: int, cluster: int, rank: int) -> tuple[int, int]:
-    """The samples [lo, hi) of an n-sample epoch that cluster rank `rank`
-    of `cluster` sums (track_fused.cu): contiguous slices of
-    ceil(n / cluster)."""
-    chunk = -(-n // cluster)
+def rank_slice(n: int, blocks: int, rank: int) -> tuple[int, int]:
+    """The samples [lo, hi) of an n-sample epoch that rank `rank` of a
+    channel's `blocks` blocks sums (track_fused.cu): contiguous slices of
+    ceil(n / blocks)."""
+    chunk = -(-n // blocks)
     lo = min(n, rank * chunk)
     return lo, min(n, lo + chunk)
 
@@ -139,15 +138,12 @@ def rank_runs(lo: int, hi: int, run: int) -> tuple[int, int]:
     return -(-lo // run), hi // run
 
 
-def choose_cluster(counts: dict, n_channels: int) -> int:
-    """The largest cluster size S whose count of co-resident clusters
-    (cudaOccupancyMaxActiveClusters; negative where the card refused the
-    size) holds all n_channels clusters at once; 1 where none does (one
-    block per channel needs no co-residence)."""
-    for size in sorted(counts, reverse=True):
-        if counts[size] >= n_channels:
-            return size
-    return 1
+def choose_blocks(resident: int, n_channels: int) -> int:
+    """Blocks per channel: as many as the card holds at once for every
+    channel (`resident` blocks of the kernel's instance, one an SM on the
+    H100), floor(resident / n_channels), and at least 1 (one block a
+    channel needs no co-residence)."""
+    return max(1, resident // n_channels)
 
 
 def wraps_once(lo_m, hi_m, dsm, n, sm, lm) -> bool:
@@ -235,47 +231,45 @@ def _entry():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
                    + [ctypes.c_void_p] * 15
-                   + [ctypes.c_int, ctypes.POINTER(_Params),
-                      ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.POINTER(_Params), ctypes.c_void_p])
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def cluster_occupancy(cfg: TrackConfig, n_channels: int, device_index: int,
-                      dtype: torch.dtype = torch.int8) -> dict:
-    """{S: clusters of S blocks the card holds at once} for this config's
-    shared memory and block size and the kernel's instance for a `dtype`
-    capture (cudaOccupancyMaxActiveClusters), for each of CLUSTER_SIZES;
-    negative where the card refuses the size."""
+def occupancy(cfg: TrackConfig, n_channels: int, device_index: int,
+              dtype: torch.dtype = torch.int8) -> int:
+    """The blocks of this config's kernel instance for a `dtype` capture
+    the card holds at once, at its shared memory and block size
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs)."""
     from bds3_tpu_torch._build import library
 
-    fn = library().bds3_track_cluster_occupancy
+    fn = library().bds3_track_occupancy
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    n = len(CLUSTER_SIZES)
-    sizes = (ctypes.c_int * n)(*CLUSTER_SIZES)
-    counts = (ctypes.c_int * n)()
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    resident = ctypes.c_int()
     with torch.cuda.device(device_index):
         err = fn(ctypes.byref(_params(cfg, n_channels)), CAPTURE_KINDS[dtype],
-                 n, sizes, counts)
+                 ctypes.byref(resident))
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME}: setting the kernel's attributes "
-                           f"failed: CUDA error {err}")
-    return dict(zip(CLUSTER_SIZES, counts))
+                           f"or asking its occupancy failed: CUDA error "
+                           f"{err}")
+    return resident.value
 
 
-def cluster_size(cfg: TrackConfig, n_channels: int, device_index: int,
-                 dtype: torch.dtype = torch.int8) -> int:
-    """The cluster size the kernel runs this config with on a `dtype`
-    capture (choose_cluster over the card's cluster_occupancy)."""
-    return choose_cluster(
-        cluster_occupancy(cfg, n_channels, device_index, dtype), n_channels)
+def blocks_per_channel(cfg: TrackConfig, n_channels: int, device_index: int,
+                       dtype: torch.dtype = torch.int8) -> int:
+    """The blocks per channel the kernel runs this config with on a
+    `dtype` capture (choose_blocks over the card's occupancy)."""
+    return choose_blocks(occupancy(cfg, n_channels, device_index, dtype),
+                         n_channels)
 
 
 def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
                       tables: TrackTables, consts, state: TrackState,
-                      _cluster: int | None = None
+                      _blocks: int | None = None
                       ) -> tuple[TrackState, torch.Tensor]:
     """W = cfg.epochs_per_block epochs for all channels in one launch.
 
@@ -285,9 +279,9 @@ def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
     Returns (new TrackState, rows (W, C, len(slot_names(cfg))) float32),
     like track_block_reference.
     The launch is on the current stream and is not synchronized.
-    _cluster: blocks per channel; None takes cluster_size.  Only for
-    checks and A/B timings of the geometry; a size the card refuses
-    raises.
+    _blocks: blocks per channel; None takes `blocks_per_channel`.  Only
+    for checks and A/B timings of the geometry; a count the card cannot
+    hold at once raises.
     """
     if not cuda_supported(cfg):
         raise NotImplementedError(
@@ -298,11 +292,11 @@ def fused_track_block(cfg: TrackConfig, capture: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"no tracking kernel for device {dev}")
     with span("k1.launch"):
-        return _launch(cfg, capture, tables, consts, state, _cluster)
+        return _launch(cfg, capture, tables, consts, state, _blocks)
 
 
 def _launch(cfg: TrackConfig, capture: torch.Tensor, tables: TrackTables,
-            consts, state: TrackState, _cluster: int | None
+            consts, state: TrackState, _blocks: int | None
             ) -> tuple[TrackState, torch.Tensor]:
     """`fused_track_block` on a card: its checks and its launch."""
     dev = capture.device
@@ -340,11 +334,15 @@ def _launch(cfg: TrackConfig, capture: torch.Tensor, tables: TrackTables,
 
     params = _params(cfg, C)
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    cluster = _cluster or cluster_size(cfg, C, index, capture.dtype)
+    S = _blocks or blocks_per_channel(cfg, C, index, capture.dtype)
     rows = torch.empty((cfg.epochs_per_block, C, params.n_slots),
                        dtype=torch.float32, device=dev)
     statef = torch.empty_like(state.statef)
     cursor = torch.empty_like(state.cursor)
+    # the exchange: each rank's partials by epoch parity, and the
+    # channels' arrival counters, zero
+    xch = torch.empty((C, 2, S, N_ACC), dtype=torch.float64, device=dev)
+    arrived = torch.zeros(C, dtype=torch.int32, device=dev)
     launch = _entry()
     with torch.cuda.device(dev):
         err = launch(
@@ -355,14 +353,16 @@ def _launch(cfg: TrackConfig, capture: torch.Tensor, tables: TrackTables,
             consts.q0_cyc.data_ptr(), consts.init_dstep.data_ptr(),
             state.statef.data_ptr(), state.cursor.data_ptr(),
             rows.data_ptr(), statef.data_ptr(), cursor.data_ptr(),
-            cluster, ctypes.byref(params),
+            S, xch.data_ptr(), arrived.data_ptr(), ctypes.byref(params),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{KERNEL_NAME} launch of {C} clusters of "
-                           f"{cluster} blocks failed: CUDA error {err}")
+        raise RuntimeError(f"{KERNEL_NAME} launch of {C} channels of {S} "
+                           f"blocks failed: CUDA error {err}")
     fused_track_block.launches += 1
+    count("k1.blocks", C * S)
     return TrackState(cursor, statef), rows
 
 
 fused_track_block.launches = 0   # kernel launches, for run accounting
 mirror("k1.launches", lambda: fused_track_block.launches)
+count("k1.blocks", 0)   # the blocks launched

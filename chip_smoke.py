@@ -10,10 +10,9 @@ kernel against its plain PyTorch version on the card, and drives the
 port's main path through its public entry points:
 
   1. build   nvcc build of the kernels; the card's name and power limit;
-             K1's cluster size (blocks per channel) at the preset, B1C
-             narrowband and B2a 12 channels, with the card's
-             cudaOccupancyMaxActiveClusters for each size tried: the
-             preset and B2a must run clusters (S > 1).
+             K1's blocks per channel at the preset, B1C narrowband and
+             B2a 12 channels, with the blocks the card holds at once: the
+             preset and B2a must run S > 1.
   2. kernel  fused_track_block against track_block_reference on the card:
              (a) 10 Msps, 2 satellites, 30 epochs; (b) 99.375 Msps,
              12 channels, 20 epochs.  blksize and cursors must be equal,
@@ -24,7 +23,7 @@ port's main path through its public entry points:
              capture.float() and on capture + 0j must equal K1 on the int8
              capture bit for bit; B2a block times of the three instances.
              Every K1 check here and below runs K1 at 1 and 2 blocks per
-             channel and at the chosen cluster size against one plain
+             channel and at the chosen count against one plain
              block (K1_CLUSTERS).
   3. receiver  run_receiver on the synthesized 20 Msps, 11.5 s,
              5-satellite scenario (seeds 3 and 1): 5 channels, the kernel
@@ -37,7 +36,7 @@ port's main path through its public entry points:
   4. full-rate  99.375 Msps, 2.2 s, 4 satellites: acquisition over PRNs
              1-63 must detect exactly those 4; 12 channels tracked for
              2000 epochs must all lock; kernel times at one block per
-             channel and at the chosen cluster size in turns (S1, S, S,
+             channel and at the chosen count in turns (S1, S, S,
              S1), the plain version's time, K1's bound.
              Then the same 2000 epochs through the prefix-sum path
              (track(correlator="bucket_pallas"), the mix+prefix kernel):
@@ -74,7 +73,7 @@ port's main path through its public entry points:
              each code blend (composite, nb, split, dotprod).  blksize and
              cursors equal, correlators (with the BOC(6,1) and composite
              pilot) within 1e-3 of |a|.mean()+1; kernel block times at
-             one block per channel and at the chosen cluster size in
+             one block per channel and at the chosen count in
              turns, the plain version's, and the kernel's bound.
   8. B1C acquisition  b1c_settings() (resampled) over PRNs 1-63 on the
              2.2 s 99.375 Msps capture: exactly the 4 satellites; the
@@ -346,20 +345,21 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# K1's cluster sizes held to its plain version: one block per channel, a
-# cluster of two, and the size the wrapper chooses (None)
-K1_CLUSTERS = (1, 2, None)
+# K1's blocks per channel held to its plain version: one, two, and the
+# count the wrapper chooses (None)
+K1_BLOCKS = (1, 2, None)
 
 
-def k1_cluster(setup, dtype=None) -> int:
-    """The cluster size K1 runs `setup` with on a `dtype` capture (int8
-    where None; fused.cluster_size)."""
+def k1_blocks(setup, dtype=None) -> int:
+    """The blocks per channel K1 runs `setup` with on a `dtype` capture
+    (int8 where None; fused.blocks_per_channel)."""
     import torch
 
-    from bds3_tpu_torch.track.fused import cluster_size
+    from bds3_tpu_torch.track.fused import blocks_per_channel
 
-    return cluster_size(setup.cfg, int(setup.state.cursor.shape[0]),
-                        torch.cuda.current_device(), dtype or torch.int8)
+    return blocks_per_channel(setup.cfg, int(setup.state.cursor.shape[0]),
+                              torch.cuda.current_device(),
+                              dtype or torch.int8)
 
 
 def _agreement(cfg, label, st_k, rows_k, st_r, rows_r, tol) -> dict:
@@ -398,8 +398,8 @@ def compare_block(cfg, capture, setup, label: str, kernel: str = "fused",
     through `plain` (a block function; by default the path's plain
     version, track_block_reference), from the same state, on the card;
     asserts agreement within `tol`.  K1 ("fused") runs at each of
-    K1_CLUSTERS against the one plain block; the result is the worst of
-    them, with each size's scaled error under "by_cluster"."""
+    K1_BLOCKS against the one plain block; the result is the worst of
+    them, with each count's scaled error under "by_blocks"."""
     import functools
 
     import torch
@@ -412,9 +412,9 @@ def compare_block(cfg, capture, setup, label: str, kernel: str = "fused",
     st_r, rows_r = plain(*args)
     fns = {"": BLOCK_FNS[kernel]}
     if kernel == "fused":
-        fns = {str(S or f"auto_{k1_cluster(setup, capture.dtype)}"):
-               functools.partial(BLOCK_FNS[kernel], _cluster=S)
-               for S in K1_CLUSTERS}
+        fns = {str(S or f"auto_{k1_blocks(setup, capture.dtype)}"):
+               functools.partial(BLOCK_FNS[kernel], _blocks=S)
+               for S in K1_BLOCKS}
     res = {}
     for name, fn in fns.items():
         st_k, rows_k = fn(*args)
@@ -424,7 +424,7 @@ def compare_block(cfg, capture, setup, label: str, kernel: str = "fused",
     out = max(res.values(), key=lambda r: r["max_scaled_err"])
     out = {**out, "max_abs_err": max(r["max_abs_err"] for r in res.values())}
     if kernel == "fused":
-        out["by_cluster"] = {n: r["max_scaled_err"] for n, r in res.items()}
+        out["by_blocks"] = {n: r["max_scaled_err"] for n, r in res.items()}
     return out
 
 
@@ -450,25 +450,25 @@ def time_block(fn, setup, capture, reps: int) -> float:
                                 setup.consts, setup.state), reps)
 
 
-def time_k1_clusters(setup, capture, reps: int) -> dict:
-    """K1's block at one block per channel and at the chosen cluster size,
-    in turns (S1, S, S, S1), each a time_block of `reps` calls: the mean
-    ms of each, the chosen size, and the speed-up."""
+def time_k1_blocks(setup, capture, reps: int) -> dict:
+    """K1's block at one block per channel and at the chosen count, in
+    turns (S1, S, S, S1), each a time_block of `reps` calls: the mean ms
+    of each, the chosen blocks per channel, and the speed-up."""
     import functools
 
     from bds3_tpu_torch.track.fused import fused_track_block
 
-    S = k1_cluster(setup, capture.dtype)
-    fns = {1: functools.partial(fused_track_block, _cluster=1),
-           S: functools.partial(fused_track_block, _cluster=S)}
+    S = k1_blocks(setup, capture.dtype)
+    fns = {1: functools.partial(fused_track_block, _blocks=1),
+           S: functools.partial(fused_track_block, _blocks=S)}
     turns = {1: [], S: []}
     for size in (1, S, S, 1):
         turns[size].append(time_block(fns[size], setup, capture, reps))
     ms = {size: float(np.mean(t)) for size, t in turns.items()}
-    return {"cluster": S, "kernel_block_ms": ms[S],
-            "kernel_block_ms_cluster1": ms[1],
+    return {"blocks_per_channel": S, "kernel_block_ms": ms[S],
+            "kernel_block_ms_blocks1": ms[1],
             "kernel_block_ms_turns": {str(k): v for k, v in turns.items()},
-            "cluster_speedup": ms[1] / ms[S]}
+            "blocks_speedup": ms[1] / ms[S]}
 
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): FP32 outside
@@ -543,14 +543,14 @@ def phase_build() -> float:
              if "registers" in ln or "spill" in ln] if log.exists() else []
     emit({"phase": "build", "seconds": dt, "ptxas": ptxas,
           "torch": __import__("torch").__version__,
-          "k1_clusters": k1_cluster_choice()})
+          "k1_blocks": k1_blocks_choice()})
     return dt
 
 
-def k1_cluster_choice() -> dict:
-    """K1's cluster size at the main shapes (20-epoch blocks): the card's
-    cudaOccupancyMaxActiveClusters for each size tried and the size chosen;
-    fails unless the preset and B2a at 12 channels run clusters."""
+def k1_blocks_choice() -> dict:
+    """K1's blocks per channel at the main shapes (20-epoch blocks): the
+    blocks the card holds at once and the count chosen; fails unless the
+    preset and B2a at 12 channels run more than one block a channel."""
     import torch
 
     from bds3_tpu_torch.track import fused
@@ -562,15 +562,15 @@ def k1_cluster_choice() -> dict:
                            ("b1c_nb_10ch", b1c_full_settings(), 10),
                            ("b2a_12ch", full_settings(), 12)):
         cfg = make_track_config(s, epochs_per_block=20)
-        occ = fused.cluster_occupancy(cfg, n_ch, dev)
         out[label] = {"channels": n_ch,
-                      "max_active_clusters": {str(k): v
-                                              for k, v in occ.items()},
-                      "chosen": fused.cluster_size(cfg, n_ch, dev),
+                      "resident_blocks": fused.occupancy(cfg, n_ch, dev),
+                      "blocks_per_channel": fused.blocks_per_channel(
+                          cfg, n_ch, dev),
                       "smem_bytes": fused._smem_bytes(cfg)}
     for label in ("b1c_wb_preset_10ch", "b2a_12ch"):
-        if out[label]["chosen"] <= 1:
-            raise AssertionError(f"K1 chose no cluster at {label}: {out}")
+        if out[label]["blocks_per_channel"] <= 1:
+            raise AssertionError(f"K1 chose one block a channel at {label}: "
+                                 f"{out}")
     return out
 
 
@@ -639,7 +639,7 @@ def phase_kernel_b1c(caps: Captures) -> dict:
         res = compare_block(setup.cfg, capture, setup, f"B1C {label}")
         if label in ("nb", "wb_composite"):
             res.update(
-                **time_k1_clusters(setup, capture, reps=5),
+                **time_k1_blocks(setup, capture, reps=5),
                 plain_block_ms=time_block(track_block_reference, setup,
                                           capture, reps=2),
                 **k1_bound(setup, capture))
@@ -676,7 +676,7 @@ def phase_kernel_iq() -> dict:
     and widened there, float32 on a real capture's cast.  Then the
     identities, bit for bit: K1 on capture.float() and on capture + 0j
     equals K1 on the int8 capture.  At B2a, one block's time through each
-    instance at its chosen cluster size in turns (int8, float32,
+    instance at its chosen blocks per channel in turns (int8, float32,
     complex64, complex64, float32, int8), the plain version's, and each
     bound."""
     import torch
@@ -727,7 +727,7 @@ def phase_kernel_iq() -> dict:
             for k in K1_KINDS:
                 res.setdefault(k, {}).update(
                     ms=float(np.mean(turns[k])), ms_turns=turns[k],
-                    cluster=k1_cluster(setups[k], caps[k].dtype),
+                    blocks_per_channel=k1_blocks(setups[k], caps[k].dtype),
                     plain_ms=time_block(track_block_reference, setups[k],
                                         caps[k], reps=2),
                     **k1_bound(setups[k], caps[k]))
@@ -967,7 +967,7 @@ def phase_full_rate(caps: Captures) -> dict:
     plain = assemble_results(setup, rows, s, n_ep, "reference")
     plain_s = time.perf_counter() - t0
 
-    k1 = time_k1_clusters(setup, capture, reps=2)
+    k1 = time_k1_blocks(setup, capture, reps=2)
     bound = k1_bound(setup, capture)
     plain_ms = time_block(track_block_reference, setup, capture, reps=1)
     seconds_tracked = n_ep * s.int_time
@@ -2400,20 +2400,20 @@ def main() -> int:
             + [e for r in (*par_ch.values(), par_t, par_2d)
                for e in r["k1_check_abs_err_by_rank"]]),
         # one W = 20 block of the preset (wideband composite, 10 channels)
-        # at the chosen cluster size, and at one block per channel
-        "cluster": k1["cluster"],
-        "ms_cluster1": k1["kernel_block_ms_cluster1"],
+        # at the chosen blocks per channel, and at one block per channel
+        "blocks_per_channel": k1["blocks_per_channel"],
+        "ms_blocks1": k1["kernel_block_ms_blocks1"],
         "ms": k1["kernel_block_ms"],
         "plain_ms": k1["plain_block_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": None,
         # one W = 20 block of B2a, 12 channels, 99.375 Msps, through each
-        # of K1's instances at its chosen cluster size
+        # of K1's instances at its chosen blocks per channel
         "variants_b2a_12ch": {
             k: {f: k1_iq["b2a_12ch"][k][f] for f in (
-                "cluster", "ms", "plain_ms", "bound_ms", "bound_by",
-                "bound_share")} for k in K1_KINDS},
+                "blocks_per_channel", "ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_share")} for k in K1_KINDS},
     }, {
         "name": "mix_prefix",
         "route": "cuda",

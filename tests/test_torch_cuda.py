@@ -82,8 +82,8 @@ def _rows(cfg, rows):
     return {n: v.cpu().numpy() for n, v in unpack_rows(cfg, rows).items()}
 
 
-# blocks per channel: one, a cluster of two, and the size the wrapper
-# chooses from the card's occupancy
+# blocks per channel: one, two, and the count the wrapper chooses from the
+# card's occupancy
 CLUSTERS = [1, 2, None]
 
 
@@ -91,12 +91,12 @@ CLUSTERS = [1, 2, None]
 @pytest.mark.parametrize("mode", [TrackMode.NARROWBAND, TrackMode.DATA_ONLY])
 def test_kernel_matches_plain_version(cuda, mode, cluster):
     """Exact blksize and cursors; the same sums in another order agree
-    within 1e-3 of |a|.mean()+1, whatever the cluster size."""
+    within 1e-3 of |a|.mean()+1, whatever the blocks per channel."""
     cap, setup = _setup(cuda, mode, 30)
     before = fused_track_block.launches
     st_k, rows_k = fused_track_block(setup.cfg, cap, setup.tables,
                                      setup.consts, setup.state,
-                                     _cluster=cluster)
+                                     _blocks=cluster)
     assert fused_track_block.launches == before + 1
     st_r, rows_r = track_block_reference(setup.cfg, cap, setup.tables,
                                          setup.consts, setup.state)
@@ -126,7 +126,7 @@ def test_b1c_kernel_matches_plain_version(cuda, mode, blend, cluster):
     before = fused_track_block.launches
     st_k, rows_k = fused_track_block(setup.cfg, cap, setup.tables,
                                      setup.consts, setup.state,
-                                     _cluster=cluster)
+                                     _blocks=cluster)
     assert fused_track_block.launches == before + 1
     st_r, rows_r = track_block_reference(setup.cfg, cap, setup.tables,
                                          setup.consts, setup.state)
@@ -164,7 +164,7 @@ def test_kernel_variants_match_plain_version(cuda, signal_, kind, cluster):
     """K1's float32 and complex64 instances against the plain version on
     the same capture: B2a narrowband at 10 Msps (30 epochs) and B1C
     wideband at 30 Msps (10 epochs); exact blksize and cursors, every
-    output within 1e-3 of |a|.mean()+1, whatever the cluster size."""
+    output within 1e-3 of |a|.mean()+1, whatever the blocks per channel."""
     if signal_ == "b2a_nb":
         s, epochs = b2a_settings(sampling_freq=10e6, intermediate_freq=2.5e6,
                                  track_mode=TrackMode.NARROWBAND), 30
@@ -176,7 +176,7 @@ def test_kernel_variants_match_plain_version(cuda, signal_, kind, cluster):
     before = fused_track_block.launches
     st_k, rows_k = fused_track_block(setup.cfg, cap, setup.tables,
                                      setup.consts, setup.state,
-                                     _cluster=cluster)
+                                     _blocks=cluster)
     assert fused_track_block.launches == before + 1
     st_r, rows_r = track_block_reference(setup.cfg, cap, setup.tables,
                                          setup.consts, setup.state)
@@ -196,7 +196,7 @@ def test_kernel_variants_equal_int8_bit_for_bit(cuda, mode, as_):
     """K1 on capture.float() and on capture + 0j equals K1 on the int8
     capture bit for bit: the same values, and with Q = 0 the complex mix
     gives the same products (x c + 0 s = x c, 0 c - x s = -(x s)); B2a
-    and B1C wideband (30 Msps), at the chosen cluster size."""
+    and B1C wideband (30 Msps), at the chosen blocks per channel."""
     if mode == TrackMode.NARROWBAND:
         cap, setup = _setup(cuda, mode, 30)
     else:
@@ -259,11 +259,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         with pytest.raises(TypeError):
             fused_track_block(setup.cfg, bad_cap, setup.tables, setup.consts,
                               setup.state)
-    # clusters of 32 blocks are beyond the card: the launch is refused
-    # and the wrapper raises
+    # 200 blocks a channel are beyond the card: the cooperative launch is
+    # refused and the wrapper raises
     with pytest.raises(RuntimeError):
         fused_track_block(setup.cfg, cap, setup.tables, setup.consts,
-                          setup.state, _cluster=32)
+                          setup.state, _blocks=200)
 
 
 # --- K1's sample loop at its edges, bit for bit -----------------------------
@@ -301,7 +301,7 @@ def _bits(x):
 
 def _assert_bits_equal(cfg, cap, setup, state, cluster=None):
     st_k, rows_k = fused_track_block(cfg, cap, setup.tables, setup.consts,
-                                     state, _cluster=cluster)
+                                     state, _blocks=cluster)
     st_r, rows_r = track_block_reference(cfg, cap, setup.tables,
                                          setup.consts, state)
     torch.cuda.synchronize()
@@ -739,3 +739,95 @@ def test_track_spans_on_the_card(cuda):
     (d0, _), = host["track.download"]
     assert b1 <= d0
     assert len(kernels) == 4
+
+
+# --- K1 spread over every SM (exchange through global memory) ---------------
+
+def _render_setup(dev, s, n_channels, epochs=20):
+    """A capture of SATS rendered on the card for `epochs` epochs of `s`
+    and its setup, n_channels channels fanned out over SATS."""
+    from bds3_tpu_torch.io.render import render_if
+
+    cap = render_if(s, SATS, (epochs + 15) * s.int_time * 1e3, dev,
+                    noise_std=1.0, seed=6)
+    inits = (_inits(s) * n_channels)[:n_channels]
+    return cap, driver.setup_tracking(cap, s, inits, epochs, epochs)
+
+
+@pytest.mark.parametrize("case", ["b1c_preset", "capture_end", "b2a_preset"])
+def test_spread_over_every_sm_equals_eight_blocks_and_plain(cuda, case):
+    """K1 at the blocks per channel the wrapper chooses (floor(resident /
+    C): 13 for the B1C preset's 10 channels and 11 for B2a's 12 on an
+    H100) equals K1 at 8 blocks a channel (what clusters gave) and the
+    plain version bit for bit (rows, state, cursors); and so does a B2a
+    window whose last epochs run past the capture's end (zero fill) at 60
+    blocks a channel."""
+    from bds3_tpu_torch.track import fused
+
+    if case == "b1c_preset":
+        cap, setup = _render_setup(cuda, b1c_settings(), 10)
+    elif case == "capture_end":
+        cap, setup = _edge_block("int8")
+        epochs = setup.cfg.epochs_per_block
+        cap = cap[:int(setup.state.cursor.max())
+                  + (epochs - 1) * setup.cfg.q0_int + 5003]
+    else:
+        cap, setup = _render_setup(cuda, b2a_settings(), 12)
+    C = int(setup.state.cursor.shape[0])
+    resident = fused.occupancy(setup.cfg, C, cuda.index or 0, cap.dtype)
+    S = fused.blocks_per_channel(setup.cfg, C, cuda.index or 0, cap.dtype)
+    assert S == resident // C >= 2
+    if case == "capture_end":
+        S = 60
+    args = (setup.cfg, cap, setup.tables, setup.consts, setup.state)
+    st_8, rows_8 = fused_track_block(*args, _blocks=8)
+    st_s, rows_s = fused_track_block(*args, _blocks=S)
+    torch.cuda.synchronize()
+    assert torch.equal(st_s.cursor, st_8.cursor)
+    assert torch.equal(_bits(rows_s), _bits(rows_8))
+    assert torch.equal(_bits(st_s.statef), _bits(st_8.statef))
+    _assert_bits_equal(*args[:2], setup, setup.state, S)
+
+
+@pytest.mark.parametrize("spread", [3, 66])
+@pytest.mark.parametrize("kind", KINDS)
+def test_spread_layout_at_the_sample_loop_edges(cuda, kind, spread):
+    """K1 bit for bit against the plain version on the edge block of each
+    instance: at 66 blocks a channel (the card's whole width for 2
+    channels) rank slices of ~150 samples, and at 3 slices that straddle
+    SPLIT boundaries."""
+    cap, setup = _edge_block(kind)
+    _assert_bits_equal(setup.cfg, cap, setup, setup.state, spread)
+
+
+def test_k1_counters_count_the_launches(cuda):
+    """k1.blocks adds C * S blocks a launch, and k1.launches one, with or
+    without the cooperative attribute (S = 1 launches without it)."""
+    from bds3_tpu_torch.utils.trace import counters
+
+    cap, setup = _edge_block("int8")
+    args = (setup.cfg, cap, setup.tables, setup.consts, setup.state)
+    before = counters()
+    fused_track_block(*args, _blocks=1)
+    fused_track_block(*args, _blocks=5)
+    fused_track_block(*args, _blocks=7)
+    torch.cuda.synchronize()
+    after = counters()
+    C = int(setup.state.cursor.shape[0])
+    assert after["k1.launches"] - before["k1.launches"] == 3
+    assert after["k1.blocks"] - before["k1.blocks"] == C * (1 + 5 + 7)
+
+
+def test_spread_launch_that_cannot_be_resident_raises(cuda):
+    """A launch of more blocks than the card holds at once is refused (a
+    cooperative launch), raises, and leaves the card usable: the next
+    launch runs and equals the plain version."""
+    from bds3_tpu_torch.track import fused
+
+    cap, setup = _edge_block("int8")
+    C = int(setup.state.cursor.shape[0])
+    resident = fused.occupancy(setup.cfg, C, cuda.index or 0, cap.dtype)
+    with pytest.raises(RuntimeError, match="blocks failed"):
+        fused_track_block(setup.cfg, cap, setup.tables, setup.consts,
+                          setup.state, _blocks=resident // C + 1)
+    _assert_bits_equal(setup.cfg, cap, setup, setup.state, 2)

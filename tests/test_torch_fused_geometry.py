@@ -1,13 +1,13 @@
 """The host-side geometry of the CUDA tracking kernel (csrc/track_fused.cu),
 on the CPU.
 
-The kernel splits each channel's epoch over a thread-block cluster, picks
-the cluster size from the card's occupancy, adds each sample signed by its
-chip into float64 sums, and wraps its chip indices with one conditional add
-or subtract.  Each of those rests on a property of the configuration or of
-the data that the plain Python here states and checks at small sizes:
-the slices cover every sample once, the choice takes the largest size that
-holds every channel, the chip tables hold only +-1, the raw chip indices
+The kernel splits each channel's epoch over S blocks, picks S from the
+card's occupancy, adds each sample signed by its chip into float64 sums,
+and wraps its chip indices with one conditional add or subtract.  Each of
+those rests on a property of the configuration or of the data that the
+plain Python here states and checks at small sizes: the slices cover
+every sample once, the choice gives every channel as many blocks as the
+card holds at once, the chip tables hold only +-1, the raw chip indices
 stay inside (-L*m, 2*L*m), and summing S slices in float64 rounds to the
 plain version's float32 rows.
 """
@@ -19,13 +19,12 @@ from bds3_tpu_torch.config import TrackMode, b1c_settings, b2a_settings
 from bds3_tpu_torch.io import SatParams, synthesize_if
 from bds3_tpu_torch.track import driver, scan
 from bds3_tpu_torch.track.fused import (
-    CLUSTER_SIZES,
     DSTEP_REL,
-    RUN_SAMPLES,
     THREADS,
+    RUN_SAMPLES,
     banks,
     chip_index_bound,
-    choose_cluster,
+    choose_blocks,
     rank_runs,
     rank_slice,
     runs_fit,
@@ -65,9 +64,9 @@ def _block(s, epochs=20):
     return cap, setup, rows
 
 
-# --- the cluster's slices and its size --------------------------------------
+# --- the ranks' slices and their count ---------------------------------------
 
-@pytest.mark.parametrize("cluster", CLUSTER_SIZES)
+@pytest.mark.parametrize("cluster", (16, 13, 11, 8, 4, 2, 1))
 def test_rank_slices_cover_each_sample_once(cluster):
     """For every epoch length n in 1..n_max (B2a at 10 Msps), the S ranks'
     slices are contiguous, in rank order, and cover [0, n) exactly once."""
@@ -82,21 +81,24 @@ def test_rank_slices_cover_each_sample_once(cluster):
         assert edge == n, (n, cluster)
 
 
-H100_COUNTS = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
-
-
-@pytest.mark.parametrize("counts,channels,want", [
-    (H100_COUNTS, 5, 16), (H100_COUNTS, 7, 16), (H100_COUNTS, 8, 8),
-    (H100_COUNTS, 10, 8), (H100_COUNTS, 12, 8), (H100_COUNTS, 15, 8),
-    (H100_COUNTS, 16, 4), (H100_COUNTS, 40, 2), (H100_COUNTS, 100, 1),
-    (H100_COUNTS, 500, 1),
-    # a size the card refuses reports a negative error code
-    ({16: -912, 8: 15, 4: 30, 2: 66, 1: 132}, 5, 8),
-    ({16: 0, 8: 0, 4: 0, 2: 0, 1: 0}, 3, 1),
-])
-def test_choose_cluster_takes_the_largest_size_that_holds_every_channel(
-        counts, channels, want):
-    assert choose_cluster(counts, channels) == want
+@pytest.mark.parametrize("resident,channels,want", [
+    (132, 10, 13),    # the B1C preset on an H100: 130 of 132 SMs
+    (132, 12, 11),    # B2a's 12 channels, in every capture dtype
+    (132, 5, 26),     # the 5-channel B1C receiver
+    (132, 1, 132), (132, 7, 18), (132, 8, 16), (132, 15, 8), (132, 16, 8),
+    (132, 40, 3), (132, 66, 2),
+    # more than half as many channels as blocks: one block a channel,
+    # launched without the cooperative attribute
+    (132, 67, 1), (132, 132, 1), (132, 200, 1), (132, 500, 1),
+    (114, 10, 11),    # a card with fewer SMs (an H100 PCIe's 114)
+    (0, 3, 1),        # a card that holds none at once
+], ids=["b1c_preset_10ch", "b2a_12ch", "b1c_5ch", "1ch", "7ch", "8ch",
+        "15ch", "16ch", "40ch", "66ch", "67ch", "132ch", "200ch", "500ch",
+        "fewer_sms", "none_resident"])
+def test_choose_blocks(resident, channels, want):
+    """Every channel takes floor(resident / C) blocks, at least one."""
+    assert choose_blocks(resident, channels) == want
+    assert want == 1 or channels * want <= resident
 
 
 # --- the chip tables hold only +-1 -------------------------------------------
@@ -227,7 +229,7 @@ def test_runs_fit_at_the_normal_range(make, dtype):
                             sm, run)
 
 
-# --- the cluster's float64 sums round to the plain version's rows ------------
+# --- the ranks' float64 sums round to the plain version's rows --------------
 
 def _cluster_sum(cluster, blk_log, run=None):
     """scan._sum_rounded as the kernel sums: each channel's first n =
@@ -294,7 +296,11 @@ def b1c_wb_block():
     pytest.param(None, 16, id="16")] + [
     pytest.param(RUN_SAMPLES[dt], cluster,
                  id=f"runs{RUN_SAMPLES[dt]}-{cluster}")
-    for dt in RUN_SAMPLES for cluster in (2, 8, 16)])
+    for dt in RUN_SAMPLES for cluster in (2, 8, 16)] + [
+    # the blocks a channel the presets take on an H100: B1C's 10 channels
+    # 13, B2a's 12 channels 11
+    pytest.param(None, 13, id="13"), pytest.param(16, 13, id="runs16-13"),
+    pytest.param(16, 11, id="runs16-11")])
 def test_cluster_float64_sums_round_to_the_plain_rows(b1c_wb_block, run,
                                                       cluster, monkeypatch):
     """A numpy emulation of the kernel's sums (S slices, each in float64,

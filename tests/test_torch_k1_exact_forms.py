@@ -20,7 +20,7 @@ from bds3_tpu_torch.config import b1c_settings, b2a_settings
 from bds3_tpu_torch.track.fused import (
     RUN_SAMPLES,
     chip_index_bound,
-    choose_cluster,
+    choose_blocks,
     rank_runs,
     rank_slice,
 )
@@ -154,12 +154,12 @@ def test_int8_by_byte_permute_equals_the_conversion():
     assert not np.signbit(got[b == 0]).any()
 
 
-# cudaOccupancyMaxActiveClusters on the H100 at both presets' shared memory
-# (tests/test_torch_fused_geometry.py): 8 blocks a channel for 12 and 10
-H100_COUNTS = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+H100_RESIDENT = 132   # blocks K1 holds at once on an H100, one an SM
 # the samples a full epoch sums outside runs, at the preset's nominal
-# epoch length and the H100's cluster size (PERF.md section 3, layer 3)
-RAGGED = {"b2a_preset": (12, 127, 0.00128), "b1c_preset": (10, 118, 0.000119)}
+# epoch length and the H100's blocks per channel (PERF.md section 3,
+# layer 3): (channels, blocks, samples, share)
+RAGGED = {"b2a_preset": (12, 11, 175, 0.00176),
+          "b1c_preset": (10, 13, 198, 0.000199)}
 
 
 def _ragged(n: int, cluster: int, run: int) -> int:
@@ -177,13 +177,14 @@ def _ragged(n: int, cluster: int, run: int) -> int:
 def test_ragged_share_of_the_presets(name, make):
     """The int8 runs leave each rank slice's ragged head and tail, under 16
     samples each, to the lone path: at the preset's nominal epoch (q0_int
-    samples) and the cluster size the H100 gives its channels, 127 of
-    99,375 B2a samples (0.128%) and 118 of 993,750 B1C ones (0.0119%);
-    within one run of that for epoch lengths around it."""
-    channels, want, share = RAGGED[name]
+    samples) and the blocks per channel the H100 gives its channels, 175
+    of 99,375 B2a samples (0.176%) at 11 blocks and 198 of 993,750 B1C
+    ones (0.0199%) at 13; within one run of that for epoch lengths around
+    it."""
+    channels, blocks, want, share = RAGGED[name]
     cfg = make_track_config(make())
-    cluster = choose_cluster(H100_COUNTS, channels)
-    assert cluster == 8
+    cluster = choose_blocks(H100_RESIDENT, channels)
+    assert cluster == blocks
     run = RUN_SAMPLES[torch.int8]
     n = cfg.q0_int
     got = _ragged(n, cluster, run)

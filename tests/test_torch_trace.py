@@ -309,3 +309,38 @@ def test_device_readers_on_a_made_up_trace():
     down = readers["track.download_ms_per_signal_s"].read(ctx)
     assert idle == pytest.approx((1.0 + 1.0) / 2.0)   # 0-0.5, 1-1.5, 20-21
     assert down == pytest.approx((3.0 + 2.0) / 2.0)   # 7-4, 6-4
+
+
+@pytest.mark.parametrize("family,counts,want", [
+    # the B1C preset's 10 channels of 13 blocks each, 18 launches
+    ("track", {"k1.blocks": 10 * 13 * 18, "k1.launches": 18}, 100 * 130 / 132),
+    # B2a's 12 channels of 11 blocks
+    ("track", {"k1.blocks": 12 * 11 * 5, "k1.launches": 5}, 100.0),
+    # more channels than SMs, one block each: above 100%, since the blocks
+    # of a launch are then not all resident at once
+    ("track", {"k1.blocks": 200 * 3, "k1.launches": 3}, 100 * 200 / 132),
+    # no block launched (the plain version on the CPU)
+    ("track", {"k1.blocks": 0, "k1.launches": 0}, None),
+    # a program without the counter
+    ("track", {"k1.launches": 18}, None),
+    ("acquire", {"k1.blocks": 130, "k1.launches": 1}, None),
+])
+def test_sm_share_reader(monkeypatch, family, counts, want):
+    """k1.sm_share: K1's blocks over its launches over the card's SMs,
+    from the counters; nothing where there is nothing to read."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(trace, "counters", lambda: dict(counts))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: SimpleNamespace(multi_processor_count=132))
+    ctx = run.Context(family, 0.0, Window([], 1.0), None, {})
+    got = spec.metric_readers()["k1.sm_share"].read(ctx)
+    assert got == (want if want is None else pytest.approx(want, rel=1e-12))
+
+
+def test_k1_counters_are_listed_before_a_launch():
+    """k1.blocks is in the registry from the wrapper's import on, so a run
+    with no launch reads 0."""
+    c = trace.counters()
+    assert c["k1.blocks"] >= 0

@@ -413,7 +413,7 @@ def main() -> int:
             turns[v].append(cs.time_block(fused.fused_track_block, setup,
                                           cap, reps))
         cs.emit({"phase": "k1_loop_ab_time", "block": label,
-                 "cluster": cs.k1_cluster(setup, cap.dtype),
+                 "blocks_per_channel": cs.k1_blocks(setup, cap.dtype),
                  "ms": {v: sum(t) / len(t) for v, t in turns.items()},
                  "ms_turns": turns})
     print(smi)

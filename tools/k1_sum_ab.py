@@ -14,7 +14,7 @@ chip, into float64 running sums.  This script builds the kernel as it is
     B2a, 20 Msps, the five channels the receiver acquires, K1 at 1, 2 and
     the chosen number of blocks per channel against its plain version,
     blksize and cursors exact, correlators within 1e-3 scaled);
-  * block times at the chosen cluster size, by CUDA events, in turns
+  * block times at the chosen blocks per channel, by CUDA events, in turns
     (float64, kahan, kahan, float64): the B1C preset's 20-epoch wideband
     block (99.375 Msps, 10 channels), that 250-epoch B2a block, and the B2a
     2000-epoch block at 99.375 Msps, 12 channels.
@@ -149,7 +149,7 @@ def main() -> int:
             turns[scheme].append(cs.time_block(fused.fused_track_block, setup,
                                                cap, reps))
         cs.emit({"phase": "k1_sum_ab_time", "block": label,
-                 "cluster": cs.k1_cluster(setup),
+                 "blocks_per_channel": cs.k1_blocks(setup),
                  "ms": {k: sum(v) / len(v) for k, v in turns.items()},
                  "ms_turns": turns})
     use("float64")

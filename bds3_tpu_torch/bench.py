@@ -147,22 +147,32 @@ def _cached(name: str, n: int, render) -> np.ndarray:
     return np.memmap(path, dtype=np.int8, mode="r")
 
 
-def _sat_params(sats, amplitude):
+def sat_params(sats, amplitude):
     from bds3_tpu_torch.io import SatParams
 
     return [SatParams(prn=p, doppler_hz=fd, code_phase_chips=cp,
                       amplitude=amplitude) for p, fd, cp in sats]
 
 
-def get_capture(s, sats, cache_name, n_ms, amplitude=0.65) -> np.ndarray:
-    """bench.py:99-118's capture (noise 2.0, seed 11), rendered on the
-    card; a memmap of its cache file."""
+def get_capture(s, sats, cache_name, n_ms, device,
+                amplitude=0.65) -> np.ndarray:
+    """bench.py:99-118's capture (noise 2.0, seed 11), rendered on
+    `device`; a memmap of its cache file."""
     from bds3_tpu_torch.io.render import render_if
 
     n = int(n_ms * 1e-3 * s.sampling_freq)
     return _cached(cache_name, n, lambda: render_if(
-        s, _sat_params(sats, amplitude), n_ms, STATE["device"],
+        s, sat_params(sats, amplitude), n_ms, device,
         noise_std=2.0, seed=11)[:n])
+
+
+def tracking_capture(device):
+    """The headline's B2a preset and its capture (get_capture's): the
+    SECONDS of B2A_SATS at 99.375 Msps."""
+    from bds3_tpu_torch.config import b2a_settings
+
+    s = b2a_settings()
+    return s, get_capture(s, B2A_SATS, "capture.bin", SECONDS * 1e3, device)
 
 
 def make_inits(s, sats, n_channels):
@@ -332,13 +342,15 @@ def pick_transport(up_mbs: float) -> str:
     return "int4" if up_mbs < 250.0 else "none"
 
 
-def _scenario_file(name, sc, amplitude, seed) -> str:
+def scenario_file(name, sc, amplitude, seed, device) -> str:
+    """The path of scenario `sc`'s int8 capture under CACHE (noise 2.0),
+    rendered on `device` unless it is there."""
     from bds3_tpu_torch.io.render import render_scenario
 
     s = sc.settings
     n = int(round(s.ms_to_process * 1e-3 * s.sampling_freq))
     _cached(name, n, lambda: render_scenario(
-        sc, STATE["device"], noise_std=2.0, amplitude=amplitude, seed=seed))
+        sc, device, noise_std=2.0, amplitude=amplitude, seed=seed))
     return os.path.join(CACHE, name)
 
 
@@ -374,7 +386,7 @@ def bench_full_receiver(cold_and_warm=True):
         num_channels=6,
     )
     sc = make_scenario(s, RX_TRUTH, n_sats=6, seed=3)
-    path = _scenario_file("scenario4.bin", sc, 0.7, 1)
+    path = scenario_file("scenario4.bin", sc, 0.7, 1, STATE["device"])
     up_mbs = probe_upload_mbs()
     transport = pick_transport(up_mbs)
     labels = ("cold", "warm") if cold_and_warm else ("warm",)
@@ -396,10 +408,11 @@ def bench_full_receiver(cold_and_warm=True):
         _fail("full_receiver_b2a pilot_secondary_sync", e)
 
 
-def bench_full_receiver_b1c():
-    """bench.py:383-433 (BASELINE config 4, B1C): a 26 s wideband
-    scenario at 33.125 Msps ("split" code blend, resampled acquisition)
-    streamed from disk through the whole receiver."""
+def b1c_receiver(device):
+    """bench_full_receiver_b1c's settings (33.125 Msps, IF fs/4, 26 s, 5
+    channels, wideband with the "split" code blend, the preset's resampled
+    acquisition), its scenario, and the path of its capture, rendered on
+    `device` unless it is cached."""
     from bds3_tpu_torch.config import b1c_settings
     from bds3_tpu_torch.io.scenario import make_scenario
 
@@ -410,7 +423,15 @@ def bench_full_receiver_b1c():
         num_channels=5, wb_code_blend="split",
     )
     sc = make_scenario(s, RX_TRUTH, n_sats=5, sow_base=3600.0 * 3, seed=5)
-    path = _scenario_file("scenario_b1c33.bin", sc, 1.3, 2)
+    return s, sc, scenario_file("scenario_b1c33.bin", sc, 1.3, 2, device)
+
+
+def bench_full_receiver_b1c():
+    """bench.py:383-433 (BASELINE config 4, B1C): a 26 s wideband
+    scenario at 33.125 Msps ("split" code blend, resampled acquisition)
+    streamed from disk through the whole receiver."""
+    s, _, path = b1c_receiver(STATE["device"])
+    fs = s.sampling_freq
     up_mbs = probe_upload_mbs()
     transport = pick_transport(up_mbs)
     res, walls = _run_receiver_passes(path, s, ("cold", "warm"), 500,
@@ -436,7 +457,7 @@ def bench_streaming(s):
     if not (os.path.exists(path) and os.path.getsize(path) == n):
         os.makedirs(CACHE, exist_ok=True)
         t0 = time.time()
-        sats = _sat_params(B2A_SATS, 0.65)
+        sats = sat_params(B2A_SATS, 0.65)
         tmp = f"{path}.{os.getpid()}.tmp"
         with open(tmp, "wb") as f:
             done = 0
@@ -523,7 +544,9 @@ def bench_mxu_micro():
                                       "shapes": rows}
 
 
-def _card() -> str | None:
+def nvidia_smi() -> str | None:
+    """The card's name and power limit, as `nvidia-smi` prints them; None
+    where it names none."""
     try:
         out = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -538,7 +561,7 @@ def _track_b1c(s1, s1nb):
     """bench.py:592-619: B1C at 99.375 Msps, narrowband then wideband,
     300 epochs over the tracked span; returns the host capture."""
     sig1 = get_capture(s1, B1C_SATS, "capture_b1c47.bin", 6200.0,
-                       amplitude=0.22)
+                       STATE["device"], amplitude=0.22)
     n_ep1 = 300
     need = int((n_ep1 + 4) * s1.samples_per_code)
     sig1_dev = torch.from_numpy(np.array(sig1[:need])).to(STATE["device"])
@@ -572,14 +595,13 @@ def main() -> int:
     DETAIL.update(backend="cuda", device=str(dev),
                   device_kind=torch.cuda.get_device_name(dev),
                   platform="gpu", device_count=torch.cuda.device_count(),
-                  nvidia_smi=_card(), torch=torch.__version__,
+                  nvidia_smi=nvidia_smi(), torch=torch.__version__,
                   budget_s=STATE["budget_s"])
     log(f"[bench] device={DETAIL['device_kind']} ({DETAIL['nvidia_smi']}) "
         f"budget={STATE['budget_s']:.0f}s")
 
     # ---- config 3 (headline): 12-channel B2a tracking ------------------
-    s2 = b2a_settings()
-    sig2 = get_capture(s2, B2A_SATS, "capture.bin", SECONDS * 1e3)
+    s2, sig2 = tracking_capture(dev)
     sig2_dev = torch.from_numpy(np.array(sig2)).to(dev)
     inits2 = make_inits(s2, B2A_SATS, CHANNELS)
     try:
@@ -617,7 +639,7 @@ def main() -> int:
     def _run40db():
         amp40 = amplitude_for_cn0(s2, 40.0, 2.0)
         sig40 = get_capture(s2, B2A_SATS, "capture40.bin", SECONDS * 1e3,
-                            amplitude=amp40)
+                            dev, amplitude=amp40)
         bench_tracking("tracking_b2a_12ch_40db", s2,
                        torch.from_numpy(np.array(sig40)).to(dev),
                        make_inits(s2, B2A_SATS, CHANNELS), n_epochs=2000,

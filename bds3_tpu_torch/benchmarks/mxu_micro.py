@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from bds3_tpu_torch.utils.device import check_tensor, resolve_device
-from bds3_tpu_torch.utils.trace import mirror
+from bds3_tpu_torch.utils.trace import count
 
 KERNEL_NAME = "mxu_micro_cuda"
 SOURCE = "bds3_tpu_torch/csrc/mxu_micro.cu"
@@ -227,12 +227,11 @@ def mxu_micro(a: torch.Tensor, b: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch ({variant}, {M}x{K}x{N}) "
                            f"failed: CUDA error {err}")
-    mxu_micro.launches += 1
+    count("k3.launches")
     return out
 
 
-mxu_micro.launches = 0   # kernel launches, for run accounting
-mirror("k3.launches", lambda: mxu_micro.launches)
+count("k3.launches", 0)   # kernel launches, for run accounting
 
 
 def make_bench(M: int, K: int, N: int, dtype: torch.dtype = torch.float32,

@@ -126,10 +126,10 @@
 // where a thread walks many samples an epoch (B1C at 99.375 Msps: 13
 // blocks a channel walk 10 runs a thread where 8 walked 16) and little
 // where it walks few (B2a: two runs a thread at 8 blocks or 11).
-// Capturing short blocks in a CUDA graph is later work.  None of the TPU kernel's machinery is
-// carried over (prefix scratch, MXU one-hot selects, boundary tiles, the
-// 4096-aligned DMA ring): the direct sum here is the same sum as its
-// bucket form, regrouped (scan.py:171-173).
+// None of the TPU kernel's machinery is carried over (prefix scratch,
+// MXU one-hot selects, boundary tiles, the 4096-aligned DMA ring): the
+// direct sum here is the same sum as its bucket form, regrouped
+// (scan.py:171-173).
 //
 // Shared memory of one block (fused.py:_smem_bytes mirrors it): the warp
 // partials (16 x 18 float64), the cursor, the state and the 18 rounded
@@ -572,9 +572,7 @@ __device__ __forceinline__ RawRun fetch_run(
     const typename Capture<KIND>::T* cap, long long g0, long long total) {
   using C = Capture<KIND>;
   RawRun raw;
-  // <vector>
   if (KIND == CAPTURE_INT8 && g0 >= 0 && g0 + C::RUN <= total) {
-  // </vector>
     const uintptr_t a = reinterpret_cast<uintptr_t>(cap + g0);
     const uint4* at = reinterpret_cast<const uint4*>(a & ~(uintptr_t)15);
     raw.shift = (int)(a & 15);
@@ -639,12 +637,10 @@ __device__ __forceinline__ void add_run(const Epoch& ep, const RawRun& raw,
     pt.pos61 = run_pos((pt.b61[1] + r0 * ep.sm61) + jf0 * ep.dsm61,
                        ep.ck61_int[k], ep.lm61) + ep.off61;
   }
-  // <samples>
 #pragma unroll
   for (int i = 0; i < C::RUN; ++i)
     add_sample<KIND, TAPS, WB, true>(ep, pt, C::sample(v, i), r0 + (float)i,
                                      jf0 + (float)i, acc);
-  // </samples>
 }
 
 // This thread's share of the block's slice [lo, hi) of the epoch.  Where

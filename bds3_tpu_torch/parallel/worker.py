@@ -68,6 +68,7 @@ from bds3_tpu_torch.track.scan import (
 from bds3_tpu_torch.track.state import ChannelInit
 from bds3_tpu_torch.utils.device import resolve_device
 from bds3_tpu_torch.utils.phase import phase_tables
+from bds3_tpu_torch.utils.trace import counters
 
 MODES = ("channel", "time", "time2d", "acq_prn", "acq_doppler", "acq_noncoh")
 TRACK_MODES = ("channel", "time", "time2d")
@@ -313,11 +314,11 @@ def run_case(case: dict, job: Job, dev: torch.device) -> dict:
     if run is not None and case.get("warm"):
         synced()
     multihost.barrier()
-    fused_track_block.launches = 0
+    before = counters()["k1.launches"]
     t0 = time.perf_counter()
     out = synced() if run is not None else {}
     wall = time.perf_counter() - t0
-    launches = fused_track_block.launches
+    launches = counters()["k1.launches"] - before
     check = [0.0] * len(CHECK_KEYS)
     if run is not None and case.get("check_k1") and dev.type == "cuda":
         res = k1_check(s, signal, _local_inits(case, mesh, inits), dev)

@@ -2,7 +2,7 @@
 """A/B of the parts of the CUDA tracking kernel's (K1's) sample loop, on
 one NVIDIA GPU.
 
-    python3 tools/k1_loop_ab.py [--variants a,b,...] [--reps N]
+    python -m bds3_tpu_torch.tools.k1_loop_ab [--variants a,b,...] [--reps N]
 
 K1 (`bds3_tpu_torch/csrc/track_fused.cu`) sums each epoch's samples in
 runs of 16 bytes (16 int8, 4 float32 or 2 complex64 samples): each run's
@@ -56,9 +56,6 @@ import os
 import re
 import subprocess
 import sys
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
 
 # The parent's loop and helpers, on the runs' shared-memory layout (each
 # tap's table `stride` long, padded by SMEM_PAD).  MOD1, CEIL and LOAD are
@@ -319,26 +316,28 @@ def sass_loops(so, kind: int = 0) -> list:
 def _setups(dev):
     import torch
 
-    import chip_smoke as cs
+    from bds3_tpu_torch import bench
+    from bds3_tpu_torch.config import b1c_settings, b2a_settings
     from bds3_tpu_torch.io import synthesize_if
+    from bds3_tpu_torch.tools import card
     from bds3_tpu_torch.track.driver import as_capture, setup_tracking
 
-    sats = cs.sat_params(cs.FULL_SATS)
-    s_b2a = cs.full_settings()
+    sats = bench.sat_params(bench.B2A_SATS, 0.65)
+    s_b2a = b2a_settings()
     cap = as_capture(synthesize_if(s_b2a, sats, n_ms=60.0, noise_std=2.0,
                                    seed=11), dev)
     out = {"b2a_int8": (cap, setup_tracking(
-        cap, s_b2a, cs.make_inits(s_b2a, cs.FULL_SATS, 12), 20, 20))}
+        cap, s_b2a, bench.make_inits(s_b2a, bench.B2A_SATS, 12), 20, 20))}
     out["b2a_float32"] = (cap.float(), out["b2a_int8"][1])
     setup = out["b2a_int8"][1]
     out["b2a_complex64"] = (cap.to(torch.complex64), dataclasses.replace(
         setup, cfg=dataclasses.replace(setup.cfg, complex_input=True)))
-    sig = synthesize_if(cs.b1c_full_settings(), sats, n_ms=260.0,
+    sig = synthesize_if(card.b1c_full_settings(), sats, n_ms=260.0,
                         noise_std=2.0, seed=11)
     cap = as_capture(sig, dev)
-    s = cs.b1c_preset_settings()
+    s = b1c_settings()
     out["b1c_int8"] = (cap, setup_tracking(
-        cap, s, cs.make_inits(s, cs.FULL_SATS, 10), 20, 20))
+        cap, s, bench.make_inits(s, bench.B2A_SATS, 10), 20, 20))
     return out
 
 
@@ -361,14 +360,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k1_loop_ab: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke as cs
-    from bds3_tpu_torch import _build
+    from bds3_tpu_torch import _build, bench
+    from bds3_tpu_torch.benchmarks.mxu_micro import time_ms
+    from bds3_tpu_torch.tools import card
     from bds3_tpu_torch.track import fused
     from bds3_tpu_torch.track.scan import track_block_reference
 
-    smi = cs.nvidia_smi()
-    name, limit = (x.strip() for x in smi.split(",", 1))
-    cs.CARD.update(card=name, power_limit=limit)
+    smi = bench.nvidia_smi()
     src = (_build.CSRC / "track_fused.cu").read_text()
     argtypes = fused._entry().argtypes
     entries = {}
@@ -380,8 +378,8 @@ def main() -> int:
             fn.restype, fn.argtypes = ctypes.c_int, argtypes
             entries[v] = fn
             loops = sass_loops(so)
-            cs.emit({"phase": "k1_loop_ab_build", "variant": v,
-                     "ptxas": usage, "sass_loops": loops[:4]})
+            card.emit({"phase": "k1_loop_ab_build", "variant": v,
+                       "ptxas": usage, "sass_loops": loops[:4]}, smi)
 
     def use(v):
         fused._entry = lambda: entries[v]
@@ -400,22 +398,26 @@ def main() -> int:
             cursors = bool(torch.equal(st_k.cursor, st_r.cursor))
             if n_rows or n_state or not cursors:
                 differ.append((v, label))
-            cs.emit({"phase": "k1_loop_ab_exact", "variant": v,
-                     "block": label, "rows_differ": n_rows,
-                     "state_differ": n_state, "cursors_equal": cursors})
+            card.emit({"phase": "k1_loop_ab_exact", "variant": v,
+                       "block": label, "rows_differ": n_rows,
+                       "state_differ": n_state, "cursors_equal": cursors},
+                      smi)
 
     for label, (cap, setup) in setups.items():
         reps = max(1, args.reps // 5) if label.startswith("b1c") \
             else args.reps
+        args_ = (setup.cfg, cap, setup.tables, setup.consts, setup.state)
         turns = {v: [] for v in names}
         for v in names + names[::-1]:
             use(v)
-            turns[v].append(cs.time_block(fused.fused_track_block, setup,
-                                          cap, reps))
-        cs.emit({"phase": "k1_loop_ab_time", "block": label,
-                 "blocks_per_channel": cs.k1_blocks(setup, cap.dtype),
-                 "ms": {v: sum(t) / len(t) for v, t in turns.items()},
-                 "ms_turns": turns})
+            turns[v].append(time_ms(
+                lambda: fused.fused_track_block(*args_), reps))
+        card.emit({"phase": "k1_loop_ab_time", "block": label,
+                   "blocks_per_channel": fused.blocks_per_channel(
+                       setup.cfg, int(setup.state.cursor.shape[0]),
+                       cap.device.index or 0, cap.dtype),
+                   "ms": {v: sum(t) / len(t) for v, t in turns.items()},
+                   "ms_turns": turns}, smi)
     print(smi)
     print(json.dumps({"ok": not differ, "differ": differ}))
     return 1 if differ else 0

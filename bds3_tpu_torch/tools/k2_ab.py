@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the mix+prefix kernel's (K2's) design choices, on one NVIDIA GPU.
 
-    python3 tools/k2_ab.py
+    python -m bds3_tpu_torch.tools.k2_ab
 
 Builds `bds3_tpu_torch/csrc/mix_prefix.cu` as it is ("as_is") and copies
 with one change each into `bds3_tpu_torch/_build/ab/`:
@@ -14,7 +14,7 @@ with one change each into `bds3_tpu_torch/_build/ab/`:
   * "two_blocks": __launch_bounds__(512, 2) in place of (512, 4), so
     ptxas may take more registers and fewer blocks share an SM.
 
-For each shape of chip_smoke.prefix_shapes, on chip_smoke.prefix_inputs,
+For each shape of card.prefix_shapes, on card.prefix_inputs,
 in two passes (as_is first in the first, last in the second): the
 device's time per call under torch.profiler over 20 calls, the time per
 call of 20 back-to-back calls (CUDA events), with output and scratch made
@@ -29,12 +29,8 @@ import ctypes
 import functools
 import hashlib
 import json
-import os
 import subprocess
 import sys
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
 
 # variant: (text in mix_prefix.cu, its replacement)
 PATCHES = {
@@ -89,26 +85,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k2_ab: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke as cs
+    from bds3_tpu_torch import bench
+    from bds3_tpu_torch.benchmarks.mxu_micro import time_ms
+    from bds3_tpu_torch.tools import card
     from bds3_tpu_torch.track import prefix
     from bds3_tpu_torch.track.state import make_track_config
 
-    smi = cs.nvidia_smi()
-    name, limit = (x.strip() for x in smi.split(",", 1))
-    cs.CARD.update(card=name, power_limit=limit)
+    smi = bench.nvidia_smi()
     as_is = prefix._entry
     entries, ptxas = build_variants()
-    cs.emit({"phase": "k2_ab_build", "ptxas": ptxas})
+    card.emit({"phase": "k2_ab_build", "ptxas": ptxas}, smi)
     dev = torch.device("cuda")
     order = list(entries)
     failed = []
     shapes = []
-    for label, s, c in cs.prefix_shapes():
+    for label, s, c in card.prefix_shapes():
         n = make_track_config(s).n_max
-        host = cs.prefix_inputs(c, n)
+        host = card.prefix_inputs(c, n)
         args = tuple(torch.from_numpy(a).to(dev) for a in host) + (n,)
         res = {v: {"device_ms": [], "call_ms": []} for v in order}
-        shapes.append((label, args, cs.prefix_bound(*host[:4], n)[0], res))
+        shapes.append((label, args, card.prefix_bound(*host[:4], n)[0], res))
 
     def runs():
         """Each shape's call through each variant, in two passes, with
@@ -126,10 +122,10 @@ def main() -> int:
         r["sha256"] = hashlib.sha256(p_i.cpu().numpy().tobytes()
                                      + p_q.cpu().numpy().tobytes()
                                      ).hexdigest()[:16]
-        r["call_ms"].append(cs.time_call(run, 20))
+        r["call_ms"].append(time_ms(run, 20))
     # the profiler last: it may leave later launches slower on the host
     for r, run in runs():
-        r["device_ms"].append(cs.device_time(run)[0])
+        r["device_ms"].append(card.device_ms(run)[0])
     for label, _, bound_ms, res in shapes:
         for variant in order:
             r = res[variant]
@@ -137,9 +133,10 @@ def main() -> int:
             if not equal and variant != "no_lookback":
                 failed.append(f"{label} {variant}")
             busy = [d for d in r["device_ms"] if d is not None]
-            cs.emit({"phase": "k2_ab", "shape": label, "variant": variant,
-                     **r, "equal_as_is": equal, "bound_ms": bound_ms,
-                     "share": bound_ms / min(busy) if busy else None})
+            card.emit({"phase": "k2_ab", "shape": label, "variant": variant,
+                       **r, "equal_as_is": equal, "bound_ms": bound_ms,
+                       "share": bound_ms / min(busy) if busy else None},
+                      smi)
     prefix._entry = as_is
     print(smi)
     print(json.dumps({"ok": not failed, "differs": failed}))

@@ -1,10 +1,10 @@
 """Device-bound times of K2 (bds3_tpu_torch/csrc/mix_prefix.cu) at every
-shape of chip_smoke.py's `prefix_vs_plain`, with a hash of its output.
+tracking shape that runs it, with a hash of its output.
 
-    python3 tools/k2_times.py TAG
+    python -m bds3_tpu_torch.tools.k2_times TAG
 
-For each shape of chip_smoke.prefix_shapes, on chip_smoke.prefix_inputs,
-one JSON line tagged with TAG:
+For each shape of card.prefix_shapes, on card.prefix_inputs, one JSON
+line tagged with TAG:
 
   * `sha256`: of the P_i and P_q bytes of one call: two kernels that agree
     bit for bit print the same hash;
@@ -14,41 +14,27 @@ one JSON line tagged with TAG:
     cost hides behind the device wherever the device takes longer;
   * `device_ms`, `kernels_per_call`: the device's own time per call and
     its kernel launches, from torch.profiler over 20 calls;
-  * `bound_ms` (chip_smoke.prefix_bound) and the shares of it;
-    `bounded_by` says whether the host ("host": the calls take more than
-    1.2 times the device's time) or the device bounds the calls.
+  * `bound_ms` (card.prefix_bound) and the shares of it; `bounded_by`
+    says whether the host ("host": the calls take more than 1.2 times the
+    device's time) or the device bounds the calls.
 
-Run from the root of a checkout, or from another checkout's root with
-this script's path, to time that checkout's K2: an A/B within one call
-(parent, change, change, parent), whose hashes show whether the two
-kernels agree bit for bit.  The shapes, inputs and bound always come from
-this script's own checkout.  Needs an NVIDIA GPU.
+Run from the root of a checkout to time that checkout's K2; from two
+checkouts' roots in turns (parent, change, change, parent) for an A/B
+within one call, whose hashes show whether the two kernels agree bit for
+bit.  Needs an NVIDIA GPU.
 """
 import hashlib
-import importlib.util
-import json
-import os
 import sys
 
-sys.path.insert(0, os.getcwd())
+import torch
 
-import torch  # noqa: E402
-
-from bds3_tpu_torch.track import prefix  # noqa: E402
-from bds3_tpu_torch.track.state import make_track_config  # noqa: E402
+from bds3_tpu_torch import bench
+from bds3_tpu_torch.benchmarks.mxu_micro import time_ms
+from bds3_tpu_torch.tools import card
+from bds3_tpu_torch.track import prefix
+from bds3_tpu_torch.track.state import make_track_config
 
 REPS = 20
-
-
-def chip_smoke():
-    """chip_smoke.py of this script's checkout, whatever the working
-    directory."""
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def main() -> int:
@@ -56,13 +42,12 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 2
     tag = sys.argv[1]
-    smoke = chip_smoke()
-    card = smoke.nvidia_smi()
+    smi = bench.nvidia_smi()
     dev = torch.device("cuda")
     lines, runs = [], []
-    for label, s, c in smoke.prefix_shapes():
+    for label, s, c in card.prefix_shapes():
         n = make_track_config(s).n_max
-        host = smoke.prefix_inputs(c, n)
+        host = card.prefix_inputs(c, n)
         args = tuple(torch.from_numpy(a).to(dev) for a in host) + (n,)
         out, scratch = prefix.buffers(c, n, dev)
 
@@ -79,20 +64,19 @@ def main() -> int:
             "sha256": digest[:16],
             "repeat_equal": bool(torch.equal(p_i, again[0])
                                  and torch.equal(p_q, again[1])),
-            "call_ms": smoke.time_call(run, REPS),
-            "bound_ms": smoke.prefix_bound(*host[:4], n)[0]})
+            "call_ms": time_ms(run, REPS),
+            "bound_ms": card.prefix_bound(*host[:4], n)[0]})
         runs.append(run)
     # the profiler last: it may leave later launches slower on the host
     for line, run in zip(lines, runs):
-        dev_ms, kernels = smoke.device_time(run, REPS)
+        dev_ms, kernels = card.device_ms(run, REPS)
         busy = dev_ms if dev_ms is not None else line["call_ms"]
         line.update(device_ms=dev_ms, kernels_per_call=kernels,
                     share_call=line["bound_ms"] / line["call_ms"],
                     share_device=line["bound_ms"] / busy,
                     bounded_by=("host" if line["call_ms"] > 1.2 * busy
-                                else "device"),
-                    card=card)
-        print(json.dumps(line), flush=True)
+                                else "device"))
+        card.emit(line, smi)
     return 0
 
 

@@ -21,8 +21,8 @@ port's counters (`counters()`, since the process started, warm-up
 included).  `--receiver` traces `run_receiver` on the capture instead of
 track(): acquisition of the two rendered satellites, tracking and
 navigation, with the receiver's and acquisition's stage spans.
-`chip_smoke.py --profile` gives the launch counts and busy shares of
-the tracking cells.
+`python3 -m portbench --trace 1` gives the busy shares of the tracking
+cells.
 """
 from __future__ import annotations
 

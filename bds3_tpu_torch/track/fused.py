@@ -42,7 +42,7 @@ from bds3_tpu_torch.track.scan import (
 )
 from bds3_tpu_torch.track.state import SPLIT, TrackConfig
 from bds3_tpu_torch.utils.device import check_tensor
-from bds3_tpu_torch.utils.trace import count, mirror, span
+from bds3_tpu_torch.utils.trace import count, span
 
 KERNEL_NAME = "track_fused_cuda"
 SOURCE = "bds3_tpu_torch/csrc/track_fused.cu"
@@ -358,11 +358,10 @@ def _launch(cfg: TrackConfig, capture: torch.Tensor, tables: TrackTables,
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch of {C} channels of {S} "
                            f"blocks failed: CUDA error {err}")
-    fused_track_block.launches += 1
+    count("k1.launches")
     count("k1.blocks", C * S)
     return TrackState(cursor, statef), rows
 
 
-fused_track_block.launches = 0   # kernel launches, for run accounting
-mirror("k1.launches", lambda: fused_track_block.launches)
-count("k1.blocks", 0)   # the blocks launched
+count("k1.launches", 0)   # kernel launches, for run accounting
+count("k1.blocks", 0)     # the blocks launched

@@ -44,7 +44,7 @@ import torch
 
 from bds3_tpu_torch.track.state import SPLIT
 from bds3_tpu_torch.utils.device import check_tensor
-from bds3_tpu_torch.utils.trace import mirror
+from bds3_tpu_torch.utils.trace import count
 
 KERNEL_NAME = "mix_prefix_cuda"
 SOURCE = "bds3_tpu_torch/csrc/mix_prefix.cu"
@@ -219,9 +219,8 @@ def mix_prefix(capture: torch.Tensor, cursor: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch failed: CUDA error {err}")
-    mix_prefix.launches += 1
+    count("k2.launches")
     return out
 
 
-mix_prefix.launches = 0   # kernel launches, for run accounting
-mirror("k2.launches", lambda: mix_prefix.launches)
+count("k2.launches", 0)   # kernel launches, for run accounting

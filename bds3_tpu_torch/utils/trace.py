@@ -11,9 +11,9 @@ read from the device trace by overlap.  `spanned(name)` puts each call of
 a function in its span.
 
 `count(name, n)` adds to one registry for the process; `counters()` reads
-it, with the values of the readers that modules register with `mirror`
-(the kernel wrappers' `.launches` attributes, which stay their store, as
-`k1.launches`, `k2.launches` and `k3.launches`).
+it.  The kernel wrappers count their launches there (`k1.launches`,
+`k2.launches`, `k3.launches`); a caller that wants the launches of a
+stretch of work reads the difference of two `counters()`.
 """
 from __future__ import annotations
 
@@ -26,7 +26,6 @@ import torch
 _profiling = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 _COUNTS: defaultdict = defaultdict(int)
-_MIRRORS: dict = {}
 
 
 def span(name: str):
@@ -53,12 +52,6 @@ def count(name: str, n: int | float = 1) -> None:
     _COUNTS[name] += n
 
 
-def mirror(name: str, read) -> None:
-    """Report `read()` as the counter `name`, for a count kept elsewhere."""
-    _MIRRORS[name] = read
-
-
 def counters() -> dict:
-    """Every counter's total since the process started, with the mirrored
-    counts."""
-    return dict(_COUNTS, **{k: read() for k, read in _MIRRORS.items()})
+    """Every counter's total since the process started."""
+    return dict(_COUNTS)

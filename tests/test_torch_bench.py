@@ -5,6 +5,7 @@ channel inits.  bench.py itself is read with ast, never imported: its
 import registers atexit and SIGTERM hooks."""
 import ast
 import atexit
+import dataclasses
 import os
 import pathlib
 import signal
@@ -14,9 +15,9 @@ import sys
 import pytest
 import torch
 
-import chip_smoke
+from bds3_tpu import config as ref_config
 from bds3_tpu_torch import bench
-from bds3_tpu_torch.config import b1c_settings, b2a_settings
+from bds3_tpu_torch import config
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 STAGE_FNS = ("bench_tracking", "bench_acquisition", "_stage",
@@ -88,13 +89,29 @@ def test_pick_transport_matches_bench_py(up_mbs, want):
     assert bench.pick_transport(up_mbs) == want
 
 
+def _bench_py_make_inits():
+    """bench.py's make_inits, compiled from its source alone."""
+    tree = ast.parse((REPO / "bench.py").read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "make_inits")
+    scope = {}
+    exec(compile(ast.Module([fn], []), "bench.py", "exec"), scope)
+    return scope["make_inits"]
+
+
 @pytest.mark.parametrize("preset,sats,n", [
-    (b2a_settings, bench.B2A_SATS, 12), (b2a_settings, bench.B2A_SATS, 48),
-    (b1c_settings, bench.B1C_SATS, 12)])
-def test_make_inits_equals_chip_smoke(preset, sats, n):
-    """The bench's inits (bench.py:121-134) are chip_smoke's."""
-    s = preset()
-    assert bench.make_inits(s, sats, n) == chip_smoke.make_inits(s, sats, n)
+    ("b2a_settings", bench.B2A_SATS, 12), ("b2a_settings", bench.B2A_SATS, 48),
+    ("b1c_settings", bench.B1C_SATS, 12)])
+def test_make_inits_equals_bench_py(preset, sats, n):
+    """The bench's inits are bench.py:121-134's, field by field (each on
+    its own package's preset): the same PRNs, carrier frequencies and
+    start samples, which place each channel's first code period on its
+    synthesized satellite's."""
+    got = bench.make_inits(getattr(config, preset)(), sats, n)
+    want = _bench_py_make_inits()(getattr(ref_config, preset)(), sats, n)
+    assert [dataclasses.astuple(c) for c in got] == \
+        [dataclasses.astuple(c) for c in want]
+    assert [c.prn for c in got] == [sats[i % len(sats)][0] for i in range(n)]
 
 
 def test_gate_records_a_skip(monkeypatch):

@@ -6,8 +6,8 @@ original's (examples/ldpc_decode_demo.py) line for line.  The B2a demo's
 ground truth is the port's own copy of tests/test_navmsg.py's
 `sample_eph`, held equal to it field by field.  profile_trace runs in
 these tests at 20 ms of capture and must write a Chrome trace.  The other
-drivers run at their full lengths on the card only (chip_smoke.py's
-`drivers` phase); in these tests each must default to the card and
+drivers run at their full lengths on the card only
+(tests/test_torch_cuda_paths.py); in these tests each must default to the card and
 raise, not run on the CPU, when there is none.
 """
 import dataclasses

@@ -66,19 +66,19 @@ def _block(s, epochs=20):
 
 # --- the ranks' slices and their count ---------------------------------------
 
-@pytest.mark.parametrize("cluster", (16, 13, 11, 8, 4, 2, 1))
-def test_rank_slices_cover_each_sample_once(cluster):
+@pytest.mark.parametrize("blocks", (16, 13, 11, 8, 4, 2, 1))
+def test_rank_slices_cover_each_sample_once(blocks):
     """For every epoch length n in 1..n_max (B2a at 10 Msps), the S ranks'
     slices are contiguous, in rank order, and cover [0, n) exactly once."""
     n_max = make_track_config(b2a_settings(sampling_freq=10e6,
                                            intermediate_freq=2.5e6)).n_max
     for n in range(1, n_max + 1):
         edge = 0
-        for rank in range(cluster):
-            lo, hi = rank_slice(n, cluster, rank)
+        for rank in range(blocks):
+            lo, hi = rank_slice(n, blocks, rank)
             assert lo == edge and lo <= hi, (n, rank, lo, hi)
             edge = hi
-        assert edge == n, (n, cluster)
+        assert edge == n, (n, blocks)
 
 
 @pytest.mark.parametrize("resident,channels,want", [
@@ -231,9 +231,9 @@ def test_runs_fit_at_the_normal_range(make, dtype):
 
 # --- the ranks' float64 sums round to the plain version's rows --------------
 
-def _cluster_sum(cluster, blk_log, run=None):
+def _blocks_sum(blocks, blk_log, run=None):
     """scan._sum_rounded as the kernel sums: each channel's first n =
-    min(blksize, n_max) products cut into `cluster` contiguous slices
+    min(blksize, n_max) products cut into `blocks` contiguous slices
     (rank_slice), each slice summed in float64, the slices added in rank
     order from 0.0, the total rounded to float32 once.  With `run` None a
     slice is summed by numpy; else as the kernel's threads sum it
@@ -244,8 +244,8 @@ def _cluster_sum(cluster, blk_log, run=None):
         out = np.empty(x.shape[0], np.float32)
         for c, n in enumerate(n_ch):
             total = 0.0
-            for rank in range(cluster):
-                lo, hi = rank_slice(n, cluster, rank)
+            for rank in range(blocks):
+                lo, hi = rank_slice(n, blocks, rank)
                 total += float(xs[c, lo:hi].sum()) if run is None \
                     else _slice_by_threads(xs[c], lo, hi, run)
             out[c] = np.float32(total)
@@ -291,18 +291,18 @@ def b1c_wb_block():
     return _block(s)
 
 
-@pytest.mark.parametrize("run,cluster", [
+@pytest.mark.parametrize("run,blocks", [
     pytest.param(None, 2, id="2"), pytest.param(None, 8, id="8"),
     pytest.param(None, 16, id="16")] + [
-    pytest.param(RUN_SAMPLES[dt], cluster,
-                 id=f"runs{RUN_SAMPLES[dt]}-{cluster}")
-    for dt in RUN_SAMPLES for cluster in (2, 8, 16)] + [
+    pytest.param(RUN_SAMPLES[dt], blocks,
+                 id=f"runs{RUN_SAMPLES[dt]}-{blocks}")
+    for dt in RUN_SAMPLES for blocks in (2, 8, 16)] + [
     # the blocks a channel the presets take on an H100: B1C's 10 channels
     # 13, B2a's 12 channels 11
     pytest.param(None, 13, id="13"), pytest.param(16, 13, id="runs16-13"),
     pytest.param(16, 11, id="runs16-11")])
-def test_cluster_float64_sums_round_to_the_plain_rows(b1c_wb_block, run,
-                                                      cluster, monkeypatch):
+def test_blocks_float64_sums_round_to_the_plain_rows(b1c_wb_block, run,
+                                                      blocks, monkeypatch):
     """A numpy emulation of the kernel's sums (S slices, each in float64,
     combined in rank order, rounded once) in place of the plain version's
     float64 row sum, over the closed-loop 20-epoch B1C wideband block at
@@ -322,7 +322,7 @@ def test_cluster_float64_sums_round_to_the_plain_rows(b1c_wb_block, run,
 
     monkeypatch.setattr(scan, "_blksize", logged_blksize)
     monkeypatch.setattr(scan, "_sum_rounded",
-                        _cluster_sum(cluster, blk_log, run))
+                        _blocks_sum(blocks, blk_log, run))
     _, got = scan.track_block_reference(setup.cfg, cap, setup.tables,
                                         setup.consts, setup.state)
     assert len(blk_log) == setup.cfg.epochs_per_block

@@ -162,10 +162,10 @@ RAGGED = {"b2a_preset": (12, 11, 175, 0.00176),
           "b1c_preset": (10, 13, 198, 0.000199)}
 
 
-def _ragged(n: int, cluster: int, run: int) -> int:
+def _ragged(n: int, blocks: int, run: int) -> int:
     out = 0
-    for rank in range(cluster):
-        lo, hi = rank_slice(n, cluster, rank)
+    for rank in range(blocks):
+        lo, hi = rank_slice(n, blocks, rank)
         ra, rb = rank_runs(lo, hi, run)
         head, tail = min(ra * run, hi), max(rb * run, min(ra * run, hi))
         out += (head - lo) + (hi - tail)
@@ -183,12 +183,12 @@ def test_ragged_share_of_the_presets(name, make):
     it."""
     channels, blocks, want, share = RAGGED[name]
     cfg = make_track_config(make())
-    cluster = choose_blocks(H100_RESIDENT, channels)
-    assert cluster == blocks
+    S = choose_blocks(H100_RESIDENT, channels)
+    assert S == blocks
     run = RUN_SAMPLES[torch.int8]
     n = cfg.q0_int
-    got = _ragged(n, cluster, run)
+    got = _ragged(n, S, run)
     assert got == want
     assert round(got / n, 6 if share < 1e-3 else 5) == share
     for m in range(n - 64, n + 64):
-        assert _ragged(m, cluster, run) <= 2 * (run - 1) * cluster
+        assert _ragged(m, S, run) <= 2 * (run - 1) * S

@@ -2,8 +2,9 @@
 (bds3_tpu_torch/benchmarks/mxu_micro.py:mxu_micro_reference) against the
 JAX Pallas kernel (benchmarks/mxu_micro.py:make_bench) in interpret mode,
 for every variant, on seeded normal inputs; the wrapper's host-side
-planner; and chip_smoke's one-call yardstick.  The CUDA kernel itself is held to the plain version on the card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+planner; and the one-call yardstick k3_times sets beside it
+(bds3_tpu_torch/tools/card.py).  The CUDA kernel itself is held to the
+plain version on the card (tests/test_torch_cuda.py)."""
 import functools
 
 import numpy as np
@@ -13,6 +14,8 @@ from jax.experimental import pallas as pl
 
 from benchmarks import mxu_micro as ref_mxu
 from bds3_tpu_torch.benchmarks import mxu_micro
+from bds3_tpu_torch.tools import card
+from bds3_tpu_torch.utils.trace import counters
 
 ITERS = 4
 TOL = 1e-5   # of ITERS * sum |a| |b| (float64)
@@ -63,11 +66,11 @@ def test_wrapper_on_cpu_is_the_plain_version(variant):
     _, tdt, split = VARIANTS[variant]
     a, b = _inputs(16, 32, 24, seed=1)
     a_t, b_t = torch.from_numpy(a), torch.from_numpy(b).to(tdt)
-    before = mxu_micro.mxu_micro.launches
+    before = counters()["k3.launches"]
     got = mxu_micro.mxu_micro(a_t, b_t, tdt, split, iters=3)
     want = mxu_micro.mxu_micro_reference(a_t, b_t, tdt, split, 3)
     assert torch.equal(got, want)
-    assert mxu_micro.mxu_micro.launches == before
+    assert counters()["k3.launches"] == before
 
 
 def test_shapes_are_the_reference_mains():
@@ -117,22 +120,19 @@ def test_grid_covers_the_output(variant, iters):
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_one_call_yardstick_is_the_function(variant):
-    """chip_smoke's yardstick, one torch.mm over [a_0 | a_1 | ...] and b
-    repeated along K, against mxu_micro_reference at ITERS iterations:
-    within 1e-5 of ITERS * sum |a||b| (bf16 widened exactly to float32 on
-    the CPU)."""
-    import chip_smoke
-
+    """K3's yardstick, one torch.mm over [a_0 | a_1 | ...] and b repeated
+    along K, against mxu_micro_reference at ITERS iterations: within 1e-5
+    of ITERS * sum |a||b| (bf16 widened exactly to float32 on the CPU)."""
     _, tdt, split = VARIANTS[variant]
     a, b = _inputs(16, 32, 24, seed=2)
     a_t, b_t = torch.from_numpy(a), torch.from_numpy(b).to(tdt)
-    a_cat, b_rep = chip_smoke.mxu_one_call_operands(a_t, b_t, variant, ITERS)
+    a_cat, b_rep = card.mxu_one_call_operands(a_t, b_t, variant, ITERS)
     parts = 2 if variant == "split" else 1
     assert a_cat.shape == (16, parts * ITERS * 32)
     assert b_rep.shape == (parts * ITERS * 32, 24)
-    mode = chip_smoke.mxu_one_call_mode(variant, torch.device("cpu"))
+    mode = card.mxu_one_call_mode(variant, torch.device("cpu"))
     assert mode == ("float32" if variant == "fp32" else "widened")
-    got = float(chip_smoke.mxu_one_call(a_cat, b_rep, mode))
+    got = float(card.mxu_one_call(a_cat, b_rep, mode))
     want = float(mxu_micro.mxu_micro_reference(a_t, b_t, tdt, split, ITERS))
     scale = mxu_micro.abs_scale(a_t, b_t, ITERS)
     assert abs(got - want) <= TOL * scale, (got, want, scale)

@@ -2,7 +2,7 @@
 against a float64 numpy oracle and against the JAX Pallas kernel run in
 interpret mode, as tests/test_pallas_prefix.py runs it, on the CPU; the
 buffers the kernel takes and the checks its wrapper makes on them; and the
-edge windows chip_smoke.py holds the kernel to on the card.
+edge windows the card tests hold the kernel to (`tools/card.py`).
 
 The tolerance is tests/test_pallas_prefix.py's: 5e-4 of max|P_i| + 1 per
 channel, since a float32 prefix over many samples is held to a float64
@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from bds3_tpu.track.pallas_prefix import mix_prefix as jax_mix_prefix
+from bds3_tpu_torch.tools import card
 from bds3_tpu_torch.track.prefix import (
     SPLIT,
     buffers,
@@ -23,6 +23,7 @@ from bds3_tpu_torch.track.prefix import (
     random_inputs,
     scratch_words,
 )
+from bds3_tpu_torch.utils.trace import counters
 
 torch.set_num_threads(2)
 
@@ -96,12 +97,12 @@ def test_wrapper_runs_reference_on_cpu():
     args = (torch.from_numpy(capture), torch.tensor([3, 11_000]),
             torch.tensor([n, 7000]), torch.from_numpy(base),
             torch.from_numpy(slope), n)
-    before = mix_prefix.launches
+    before = counters()["k2.launches"]
     want = mix_prefix_reference(*args)
     got = mix_prefix(*args)
     out, scratch = buffers(2, n, "cpu")
     got_out = mix_prefix(*args, out=out, scratch=scratch)
-    assert mix_prefix.launches == before
+    assert counters()["k2.launches"] == before
     assert got_out[0] is out[0] and got_out[1] is out[1]
     for g in (got, got_out):
         assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
@@ -162,36 +163,37 @@ def test_wrapper_refuses_a_foreign_or_misshaped_scratch(case):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("label,n,cursor,blk", chip_smoke.prefix_edge_cases(),
-                         ids=[e[0] for e in chip_smoke.prefix_edge_cases()])
-def test_reference_at_chip_smokes_edge_windows(label, n, cursor, blk):
-    """The edge windows chip_smoke.py holds the kernel to (n < 4096, n = 1,
-    blk <= 0, cursors below 0 and past the capture's end): the plain
-    version within the tolerance of the oracle, and exactly zero where the
-    window reads no sample."""
-    capture, base, slope = random_inputs(9, len(cursor), n, 50_000)
+@pytest.mark.parametrize("label,n,cursor,blk", card.prefix_edge_cases(),
+                         ids=[e[0] for e in card.prefix_edge_cases()])
+def test_reference_at_the_card_edge_windows(label, n, cursor, blk):
+    """The edge windows the card tests hold the kernel to (n < 4096, n = 1,
+    blk <= 0, cursors below 0 and past the capture's end), on the same
+    inputs: the plain version within the tolerance of the oracle, and
+    exactly zero where the window reads no sample."""
+    total = card.PREFIX_EDGE_TOTAL
+    capture, base, slope = random_inputs(9, len(cursor), n, total)
     got = _run_reference(capture, cursor, blk, base, slope, n)
     want = mix_prefix_float64(capture, np.array(cursor), np.array(blk), base,
                               slope, n)
     _assert_prefix_close(*got, *want)
     cursor, blk = np.array(cursor), np.array(blk)
-    reads = (np.minimum(blk, n) > 0) & (cursor < 50_000) & (cursor + n > 0)
+    reads = (np.minimum(blk, n) > 0) & (cursor < total) & (cursor + n > 0)
     for p in got:
         assert not p[~reads].any()
         assert p[reads].any()
 
 
-def test_chip_smoke_prefix_inputs_and_bound():
-    """chip_smoke's K2 inputs at a shape (tools/k2_times.py times the same)
-    and its bound: the valid samples read once and both rows written once
-    over 3.35 TB/s."""
+def test_card_prefix_inputs_and_bound():
+    """K2's inputs at a shape as the card tests and tools/k2_times.py take
+    them, and its bound: the valid samples read once and both rows written
+    once over 3.35 TB/s."""
     n_ch, n = 4, 3 * SPLIT + 11
-    capture, cursor, blk, base, slope = chip_smoke.prefix_inputs(n_ch, n)
+    capture, cursor, blk, base, slope = card.prefix_inputs(n_ch, n)
     assert capture.shape == (3 * n,) and capture.dtype == np.int8
     assert cursor.dtype == blk.dtype == np.int64 and len(cursor) == n_ch
     assert base.shape == (n_ch, n_tiles(n)) and slope.shape == (n_ch,)
     assert (blk < n).all() and (cursor + n > len(capture)).sum() == 2
-    ms, by = chip_smoke.prefix_bound(capture, cursor, blk, base, n)
+    ms, by = card.prefix_bound(capture, cursor, blk, base, n)
     valid = sum(min(b, len(capture) - c) for c, b in zip(cursor, blk))
     assert by == "bytes"
     assert ms == pytest.approx((valid + 8 * n_ch * (n + 1) + base.nbytes)

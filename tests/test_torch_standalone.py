@@ -1,7 +1,7 @@
 """The port stands alone: nothing in bds3_tpu_torch/ (its drivers in
 examples/ and tools/ included) or chip_smoke.py imports the JAX package,
-JAX or jaxlib; every module imports with bds3_tpu blocked, and every one
-but the plots copy with matplotlib blocked too; the host modules it copied (and the native IO runtime's
+JAX or jaxlib; every module of the port imports with bds3_tpu blocked,
+and every one but the plots copy with matplotlib blocked too; the host modules it copied (and the native IO runtime's
 sources) equal their originals but for the import prefix; and its entry
 points refuse the JAX package's Settings, whose enums are of other
 classes."""
@@ -69,7 +69,7 @@ def test_every_module_imports_with_bds3_tpu_blocked():
             "for m in ('bds3_tpu', 'jax', 'jaxlib'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
-            f"for m in {modules + ['chip_smoke']!r}:\n"
+            f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "print('imported', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -81,8 +81,8 @@ def test_every_module_imports_with_bds3_tpu_blocked():
 
 def test_card_path_imports_without_matplotlib():
     """The card's machine has no matplotlib: every module of the port but
-    the plots copy, the drivers and chip_smoke.py import with it blocked,
-    and the plots copy is the one that needs it."""
+    the plots copy, the drivers and the card tools included, imports with
+    it blocked, and the plots copy is the one that needs it."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         .removesuffix(".__init__")
@@ -91,7 +91,7 @@ def test_card_path_imports_without_matplotlib():
             "for m in ('bds3_tpu', 'jax', 'jaxlib', 'matplotlib'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
-            f"for m in {modules + ['chip_smoke']!r}:\n"
+            f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "try:\n"
             "    import bds3_tpu_torch.observe.plots\n"

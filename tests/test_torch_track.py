@@ -30,6 +30,7 @@ from bds3_tpu_torch.track.scan import (
     track_block_reference,
     unpack_rows,
 )
+from bds3_tpu_torch.utils.trace import counters
 
 torch.set_num_threads(2)
 
@@ -165,12 +166,12 @@ def test_wrapper_runs_plain_version_on_cpu():
     cap = port_driver.as_capture(sig, "cpu")
     setup = port_driver.setup_tracking(
         cap, P(s), [_init_for(port_state, s, SAT19)], 8, 8)
-    before = fused_track_block.launches
+    before = counters()["k1.launches"]
     st_a, rows_a = fused_track_block(setup.cfg, cap, setup.tables,
                                      setup.consts, setup.state)
     st_b, rows_b = track_block_reference(setup.cfg, cap, setup.tables,
                                          setup.consts, setup.state)
-    assert fused_track_block.launches == before
+    assert counters()["k1.launches"] == before
     assert torch.equal(rows_a, rows_b) and torch.equal(st_a.cursor, st_b.cursor)
     assert rows_a.dtype == torch.float32 and st_a.statef.dtype == torch.float32
     with pytest.raises(ValueError):

@@ -18,8 +18,11 @@ Port of `bds3_tpu/track/driver.py`, with its two paths:
 
 The block schedule is the reference's, verbatim, so the epoch count,
 `absolute_sample` and the derived frequencies match it, and the two paths
-read the same samples.  The outputs are downloaded once, at the end, or
-left on the device (`download=False`, `LazyOutputs`).
+read the same samples.  Each block's rows go to a sink as the block is
+launched: with `download=True` a `BlockDrain`, which brings every
+block's outputs to the host while the device runs the blocks after it,
+into the request's final layout; with `download=False` a `KeepRows`,
+which leaves them on the device (`LazyOutputs`).
 
 A capture is real (int8, float32) or complex64, tracked in the dtype
 `io.transport.capture_dtype` gives it; the config is built for its kind
@@ -27,16 +30,20 @@ A capture is real (int8, float32) or complex64, tracked in the dtype
 
 Under a profiler each call is one `track` span holding `track.setup`,
 then `track.blocks` (resident) or a `track.read` and a `track.upload`
-for each block (per block), then `track.download` (which on a card
-holds the wait for the kernels queued before the copy) and
-`track.assemble`; the requests, seconds of signal, blocks and downloaded
-bytes are counted (`utils/trace.py`).
+for each block (per block); each block's drain is a `track.download`
+(the wait for its copy and its placement) and a `track.assemble` (its
+derived fields): on the resident path a block's drain is inside
+`track.blocks` when LOOKAHEAD later blocks were launched before it, and
+the drains of the last LOOKAHEAD blocks follow the loop.  The requests, seconds of signal, blocks, downloaded bytes and the drains
+that finished while a later block was still on the device are counted
+(`utils/trace.py`).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import time
+from collections import defaultdict, deque
 from typing import NamedTuple
 
 import numpy as np
@@ -119,19 +126,14 @@ class LazyOutputs:
         return self
 
     def realize(self) -> dict:
-        """Download the rows once; name -> (C, E) numpy arrays."""
-        rows = download_rows(self._rows[: self._n])
+        """Download the rows once, counted in `track.d2h_bytes`; name ->
+        (C, E) numpy arrays."""
+        with span("track.download"):
+            rows = self._rows[: self._n].cpu().numpy()
+        count("track.d2h_bytes", rows.nbytes)
         with span("track.assemble"):
             return {k: np.ascontiguousarray(rows[:, :, i].T)
                     for k, i in self._idx.items()}
-
-
-def download_rows(rows: torch.Tensor) -> np.ndarray:
-    """The rows as numpy, counted in `track.d2h_bytes`."""
-    with span("track.download"):
-        out = rows.cpu().numpy()
-    count("track.d2h_bytes", out.nbytes)
-    return out
 
 
 @dataclasses.dataclass
@@ -376,19 +378,213 @@ def setup_tracking(capture, settings: Settings, inits: list[ChannelInit],
     )
 
 
+def _results(setup: TrackSetup, settings: Settings, n_epochs: int,
+             correlator: str, outputs, absolute_sample=None, carr_freq=None,
+             code_freq=None) -> TrackResults:
+    inits = setup.inits
+    return TrackResults(
+        prns=np.array([c.prn for c in inits]),
+        acquired_freq=np.array([c.acquired_freq for c in inits],
+                               dtype=np.float64),
+        n_epochs=n_epochs, outputs=outputs, absolute_sample=absolute_sample,
+        carr_freq=carr_freq, code_freq=code_freq, int_time=settings.int_time,
+        settings=settings, correlator=correlator)
+
+
+class KeepRows:
+    """The sink of `track(download=False)`: every block's rows stay on the
+    device, joined at the end into the rows of a LazyOutputs."""
+
+    def __init__(self, setup: TrackSetup, settings: Settings, n_epochs: int,
+                 correlator: str):
+        self._args = (setup, settings, n_epochs, correlator)
+        self._rows = []
+
+    def push(self, rows: torch.Tensor) -> None:
+        self._rows.append(rows)
+
+    def finish(self) -> TrackResults:
+        setup, settings, n_epochs, correlator = self._args
+        rows = torch.cat(self._rows)
+        n = min(n_epochs, rows.shape[0])
+        return _results(setup, settings, n, correlator,
+                        LazyOutputs(rows, output_names(setup.cfg), n))
+
+
+# Blocks that the device holds queued behind the oldest block not yet
+# drained: the host places a block while the device runs these, so a
+# stall of the host shorter than their time leaves the device busy.  A
+# B2a block of W = 200 takes ~2.2 ms; the host stalls for up to ~23 ms
+# (the first block's placement, which faults in the huge pages numpy
+# takes for the whole answer, ~10 ms for B2a's 50 MB; garbage
+# collection; a shared host's scheduling; a traced B2a run on an H100's
+# host), which 16 cover.
+LOOKAHEAD = 16
+# Staging of BlockDrain not in use, by device: a request on a card takes
+# one and gives it back, so pinned memory stays at a few blocks' worth
+# whatever the number of requests, and the side stream's allocations are
+# served from the caching allocator's blocks of earlier requests.
+_STAGING: defaultdict = defaultdict(list)
+
+
+class Staging(NamedTuple):
+    """A side stream and LOOKAHEAD + 1 pinned float32 buffers."""
+
+    stream: torch.cuda.Stream
+    buffers: list
+
+
+def _take_staging(dev: torch.device, n: int) -> Staging:
+    """Staging of more than LOOKAHEAD buffers of at least `n` values: one
+    an earlier request gave back, or a new one."""
+    free = _STAGING[str(dev)]
+    while free:
+        staging = free.pop()
+        if (len(staging.buffers) > LOOKAHEAD
+                and staging.buffers[0].numel() >= n):
+            return staging
+    return Staging(torch.cuda.Stream(dev),
+                   [torch.empty(n, dtype=torch.float32, pin_memory=True)
+                    for _ in range(LOOKAHEAD + 1)])
+
+
+class _Queued(NamedTuple):
+    """A block whose copy to the host is queued (BlockDrain)."""
+
+    e0: int                          # its first epoch
+    k: int                           # its epochs kept
+    staged: torch.Tensor             # (F, C, k): the copy's destination
+    launched: torch.cuda.Event | None  # after its launch (on a card)
+    copied: torch.cuda.Event | None    # after its copy (on a card)
+    rows: torch.Tensor               # referenced until the copy is done
+
+
+class BlockDrain:
+    """The sink of `track(download=True)`: each block's outputs reach the
+    host in the request's final layout while the device runs the blocks
+    after it, with the reference's derived fields of its epochs
+    (bds3_tpu/track/driver.py:386-414).
+
+    Every name is a (C, E) view of one fresh (F, C, E) float32 array,
+    filled a block at a time.  On a card a block's F output columns (not
+    the state's slots) are copied on a side stream, behind an event
+    recorded after its launch, into one of LOOKAHEAD + 1 pinned staging
+    buffers (`Staging`), permuted there to (F, C, W) by the copy; the
+    host waits for that copy alone, LOOKAHEAD blocks later, and places
+    it.  With rows on the host (the CPU) the same placement runs on them
+    directly.  `absolute_sample` carries its last column from block to
+    block, and the frequencies are the same float64 multiply and add on
+    each block's slice, so every value equals the whole-array assembly's
+    bit for bit.
+    """
+
+    def __init__(self, setup: TrackSetup, settings: Settings, n_epochs: int,
+                 correlator: str):
+        cfg, inits = setup.cfg, setup.inits
+        names = output_names(cfg)
+        F, C, W = len(names), len(inits), cfg.epochs_per_block
+        n = min(n_epochs, setup.n_blocks * W)
+        self._setup, self._settings, self._correlator = \
+            setup, settings, correlator
+        self._names = names
+        self._col = {k: names.index(k) for k in ("blksize", "d_cyc", "d_step")}
+        self._fs, self._code_basis = cfg.fs, settings.code_freq_basis
+        self._base = np.array([c.acquired_freq for c in inits],
+                              dtype=np.float64)
+        self._carry = setup.cursors0.copy()
+        self._out = np.empty((F, C, n), np.float32)
+        self._absolute_sample = np.empty((C, n), np.int64)
+        self._carr_freq = np.empty((C, n), np.float64)
+        self._code_freq = np.empty((C, n), np.float64)
+        self._queued = 0                       # epochs whose copy is queued
+        self._blocks = 0
+        self._pending = deque()
+        self._dev = setup.state.cursor.device
+        self._staging = (_take_staging(self._dev, F * C * W)
+                         if self._dev.type == "cuda" else None)
+
+    def push(self, rows: torch.Tensor) -> None:
+        """Queue the copy of a block's rows just launched on the current
+        stream; then drain the oldest block if LOOKAHEAD newer ones are
+        queued behind it."""
+        e0 = self._queued
+        k = min(rows.shape[0], self._out.shape[2] - e0)
+        src = rows[:k, :, :len(self._names)].permute(2, 1, 0)  # (F, C, k)
+        launched = copied = None
+        staged = src
+        if self._staging is not None:
+            side, buffers = self._staging
+            launched = torch.cuda.Event()
+            launched.record(torch.cuda.current_stream(self._dev))
+            buf = buffers[self._blocks % len(buffers)]
+            staged = buf[:src.numel()].view(src.shape)
+            with torch.cuda.stream(side):
+                side.wait_event(launched)
+                staged.copy_(src, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(side)
+        self._pending.append(_Queued(e0, k, staged, launched, copied, rows))
+        self._queued += k
+        self._blocks += 1
+        if len(self._pending) > LOOKAHEAD:
+            self._drain()
+
+    def _drain(self) -> None:
+        """The oldest queued block: wait for its copy, place it, and work
+        out its derived fields."""
+        e0, k, staged, _, copied, _ = self._pending.popleft()
+        sl = slice(e0, e0 + k)
+        with span("track.download"):
+            if copied is not None:
+                copied.synchronize()
+            self._out[:, :, sl] = staged.numpy()
+        count("track.d2h_bytes", staged.numel() * staged.element_size())
+        with span("track.assemble"):
+            col = self._col
+            blk = self._out[col["blksize"], :, sl].astype(np.int64)
+            np.cumsum(blk, axis=1, out=self._absolute_sample[:, sl])
+            self._absolute_sample[:, sl] += self._carry[:, None]
+            self._carry = self._absolute_sample[:, e0 + k - 1].copy()
+            np.add(self._base[:, None],
+                   self._out[col["d_cyc"], :, sl].astype(np.float64)
+                   * self._fs, out=self._carr_freq[:, sl])
+            np.add(self._code_basis,
+                   self._out[col["d_step"], :, sl].astype(np.float64)
+                   * self._fs, out=self._code_freq[:, sl])
+        # hidden: a later block was still on the device when this one was
+        # done (queried on the newest block's launch event)
+        newest = self._pending[-1].launched if self._pending else None
+        count("track.drains_hidden",
+              int(newest is not None and not newest.query()))
+
+    def finish(self) -> TrackResults:
+        """Drain the blocks still queued; the request's results."""
+        while self._pending:
+            self._drain()
+        if self._staging is not None:
+            _STAGING[str(self._dev)].append(self._staging)
+            self._staging = None
+        n = self._queued
+        out, fields = self._out, (self._absolute_sample, self._carr_freq,
+                                 self._code_freq)
+        if n < out.shape[2]:        # a deadline stopped the blocks early
+            out = np.ascontiguousarray(out[:, :, :n])
+            fields = tuple(np.ascontiguousarray(f[:, :n]) for f in fields)
+        return _results(self._setup, self._settings, n, self._correlator,
+                        dict(zip(self._names, out)), *fields)
+
+
 @spanned("track.blocks")
-def run_blocks(setup: TrackSetup, capture: torch.Tensor,
-               block_fn) -> torch.Tensor:
-    """All blocks over a resident capture, one `block_fn` call each;
-    (n_blocks*W, C, slots) rows on the device, not synchronized."""
+def run_blocks(setup: TrackSetup, capture: torch.Tensor, block_fn,
+               sink) -> None:
+    """All blocks over a resident capture, one `block_fn` call each, each
+    block's rows handed to `sink` (BlockDrain or KeepRows) once launched."""
     state = setup.state
-    rows = []
     for _ in range(setup.n_blocks):
         state, r = block_fn(setup.cfg, capture, setup.tables, setup.consts,
                             state)
         count("track.blocks")
-        rows.append(r)
-    return torch.cat(rows)
+        sink.push(r)
 
 
 def _upload_block(host: np.ndarray, transport: str, dev: torch.device,
@@ -406,10 +602,10 @@ def _upload_block(host: np.ndarray, transport: str, dev: torch.device,
     return block
 
 
-def stream_blocks(setup: TrackSetup, signal, block_fn, transport: str = "none",
-                  sync_each_block: bool = False,
+def stream_blocks(setup: TrackSetup, signal, block_fn, sink,
+                  transport: str = "none", sync_each_block: bool = False,
                   deadline_s: float | None = None,
-                  t0: float | None = None) -> torch.Tensor:
+                  t0: float | None = None) -> None:
     """All blocks over a host source, read, packed, uploaded and tracked
     one at a time (bds3_tpu/track/driver.py:320-366): block b is
     signal[starts[b] : starts[b] + block_len], zero-padded past the end,
@@ -417,7 +613,8 @@ def stream_blocks(setup: TrackSetup, signal, block_fn, transport: str = "none",
     the previous block's state before the next block is read (a one-block
     lookahead: host staging stays bounded to ~2 blocks).  deadline_s stops
     after the first block that ends later than deadline_s seconds after
-    `t0`.  Returns the rows of the blocks run, on the device."""
+    `t0`.  Each block's rows go to `sink` (BlockDrain or KeepRows) once
+    launched."""
     t0 = time.time() if t0 is None else t0
     cfg, sched = setup.cfg, setup.schedule
     dev = setup.state.cursor.device
@@ -425,7 +622,7 @@ def stream_blocks(setup: TrackSetup, signal, block_fn, transport: str = "none",
     # the reference's relative cursors (driver.py:248): cursor - start
     state = TrackState(setup.state.cursor - sched.starts[0],
                        setup.state.statef)
-    rows, pending = [], None
+    pending = None
     for s_cur in sched.starts:
         with span("track.read"):
             host = read_host(signal, s_cur, s_cur + sched.block_len)
@@ -437,7 +634,7 @@ def stream_blocks(setup: TrackSetup, signal, block_fn, transport: str = "none",
             block = _upload_block(host, transport, dev, side)
         state, r = block_fn(cfg, block, setup.tables, setup.consts, state)
         count("track.blocks")
-        rows.append(r)
+        sink.push(r)
         state = TrackState(state.cursor - sched.shift, state.statef)
         if sync_each_block and dev.type == "cuda":
             if pending is not None:
@@ -448,7 +645,6 @@ def stream_blocks(setup: TrackSetup, signal, block_fn, transport: str = "none",
             break
     if pending is not None:
         pending.synchronize()
-    return torch.cat(rows)
 
 
 @spanned("track")
@@ -502,61 +698,23 @@ def track(
     if n_epochs is None:
         n_epochs = settings.int_epochs
     block_fn = BLOCK_FNS[correlator]
-    if isinstance(signal, torch.Tensor):
+    resident = isinstance(signal, torch.Tensor)
+    if resident:
         capture = as_capture(signal, device)
         setup = setup_tracking(capture, settings, inits, n_epochs,
                                epochs_per_block)
-        rows = run_blocks(setup, capture, block_fn)
     else:
         setup = setup_tracking(signal, settings, inits, n_epochs,
                                epochs_per_block, device)
-        rows = stream_blocks(setup, signal, block_fn, transport,
-                             sync_each_block, deadline_s, t0)
-    ran = ran_name(correlator, rows.device.type == "cuda")
-    if not download:
-        n_eff = min(n_epochs, rows.shape[0])
-        res = TrackResults(
-            prns=np.array([c.prn for c in inits]),
-            acquired_freq=np.array([c.acquired_freq for c in inits],
-                                   dtype=np.float64),
-            n_epochs=n_eff,
-            outputs=LazyOutputs(rows, output_names(setup.cfg), n_eff),
-            absolute_sample=None, carr_freq=None, code_freq=None,
-            int_time=settings.int_time, settings=settings, correlator=ran)
+    ran = ran_name(correlator, setup.state.cursor.device.type == "cuda")
+    sink = (BlockDrain if download else KeepRows)(setup, settings, n_epochs,
+                                                   ran)
+    if resident:
+        run_blocks(setup, capture, block_fn, sink)
     else:
-        res = assemble_results(setup, rows, settings, n_epochs, ran)
+        stream_blocks(setup, signal, block_fn, sink, transport,
+                      sync_each_block, deadline_s, t0)
+    res = sink.finish()
     count("track.requests")
     count("track.signal_ms", res.n_epochs * (settings.int_time * 1e3))
     return res
-
-
-def assemble_results(setup: TrackSetup, rows: torch.Tensor,
-                     settings: Settings, n_epochs: int,
-                     correlator: str) -> TrackResults:
-    """One download of the packed rows, then the reference's derived
-    fields (bds3_tpu/track/driver.py:386-414)."""
-    cfg, inits = setup.cfg, setup.inits
-    names = output_names(cfg)
-    stacked = download_rows(rows[:n_epochs, :, :len(names)])  # (E, C, F)
-    with span("track.assemble"):
-        outputs = {k: np.ascontiguousarray(stacked[:, :, i].T)
-                   for i, k in enumerate(names)}              # (C, E)
-        blks = outputs["blksize"].astype(np.int64)
-        absolute_sample = setup.cursors0[:, None] + np.cumsum(blks, axis=1)
-        base = np.array([c.acquired_freq for c in inits], dtype=np.float64)
-        carr_freq = base[:, None] \
-            + outputs["d_cyc"].astype(np.float64) * cfg.fs
-        code_freq = settings.code_freq_basis \
-            + outputs["d_step"].astype(np.float64) * cfg.fs
-    return TrackResults(
-        prns=np.array([c.prn for c in inits]),
-        acquired_freq=base,
-        n_epochs=stacked.shape[0],
-        outputs=outputs,
-        absolute_sample=absolute_sample,
-        carr_freq=carr_freq,
-        code_freq=code_freq,
-        int_time=settings.int_time,
-        settings=settings,
-        correlator=correlator,
-    )

@@ -17,6 +17,7 @@ Marked `cuda` and skipped without an NVIDIA GPU.  On a machine with one
 """
 import dataclasses
 import functools
+from collections import defaultdict
 
 import numpy as np
 import pytest
@@ -990,9 +991,12 @@ def test_parallel_ranks_on_one_card_equal_one_rank(cuda, tmp_path, case):
 
 def test_track_spans_on_the_card(cuda):
     """track() on the card under the profiler: one `k1.launch` span a
-    block, inside the launch loop's span, counted as K1's launches; the
-    download's span after the loop's; the four kernels on the device's
-    timeline."""
+    block, inside the launch loop's span, counted as K1's launches; one
+    `track.download` and one `track.assemble` span a block, inside the
+    loop for a block with LOOKAHEAD blocks launched after it, after the
+    loop for the last LOOKAHEAD (here every block), the first drain after
+    block LOOKAHEAD's launch (here the last); the four kernels on the
+    device's timeline."""
     from torch.profiler import ProfilerActivity, profile
 
     from bds3_tpu_torch.utils.trace import counters
@@ -1014,12 +1018,98 @@ def test_track_spans_on_the_card(cuda):
         else:
             host.setdefault(e.name, []).append((e.time_range.start,
                                                 e.time_range.end))
+    (r0, r1), = host["track"]
     (b0, b1), = host["track.blocks"]
     assert len(host["k1.launch"]) == 4
     assert all(b0 <= a <= b <= b1 for a, b in host["k1.launch"])
-    (d0, _), = host["track.download"]
-    assert b1 <= d0
+    down = sorted(host["track.download"])
+    asm = sorted(host["track.assemble"])
+    assert len(down) == len(asm) == 4
+    looped = max(0, len(down) - driver.LOOKAHEAD)
+    assert all(b0 <= a <= b <= b1 for a, b in down[:looped] + asm[:looped])
+    assert all(b1 <= a <= b <= r1 for a, b in down[looped:] + asm[looped:])
+    # the first drain once LOOKAHEAD blocks are queued behind block 0,
+    # or, with fewer blocks, after the last launch
+    first = min(driver.LOOKAHEAD, len(down) - 1)
+    assert sorted(host["k1.launch"])[first][1] <= down[0][0]
     assert len(kernels) == 4
+
+
+@functools.lru_cache(maxsize=None)
+def _drain_capture(signal_):
+    """1,015 epochs of the preset of `signal_` at 99.375 Msps (B2a 1 s,
+    B1C 10 s), for 850 epochs in blocks of up to 200 and their margins,
+    bench.B2A_SATS rendered on the card (noise 2.0, seed 11), with the
+    preset's channels."""
+    from bds3_tpu_torch.io.render import render_if
+
+    s, n_channels = ((b2a_settings(), 12) if signal_ == "b2a"
+                     else (b1c_settings(), 10))
+    cap = render_if(s, bench.sat_params(bench.B2A_SATS, 0.65),
+                    (1000 + 15) * s.int_time * 1e3, torch.device("cuda"),
+                    noise_std=2.0, seed=11)
+    return s, cap, bench.make_inits(s, bench.B2A_SATS, n_channels)
+
+
+@pytest.mark.parametrize("lookahead,w", [(2, 200), (driver.LOOKAHEAD, 40)])
+@pytest.mark.parametrize("signal_", ["b2a", "b1c"])
+def test_drain_at_the_presets_shapes(cuda, signal_, lookahead, w,
+                                     monkeypatch):
+    """track(download=True) at the presets' shapes (B2a 12 channels, B1C
+    10 wideband ones), 850 epochs in blocks of W, the last cut: 5 blocks
+    of 200 at a lookahead of 2, and 22 of 40 at the driver's own, so that
+    at both most blocks are drained while K1 still runs later ones and the
+    staging ring wraps while later copies are queued.  The per-block
+    drain equals the whole-array assembly of the rows left on the card
+    (realize(), the cumulative sum and float64 frequencies over whole
+    arrays) bit for bit; two requests in a row take the same pinned
+    staging ring, and their answers are their own; each request copies
+    exactly its epochs' output columns; the last block's drain is never
+    counted as hidden."""
+    monkeypatch.setattr(driver, "LOOKAHEAD", lookahead)
+    monkeypatch.setattr(driver, "_STAGING", defaultdict(list))  # a new ring
+    s, cap, inits = _drain_capture(signal_)
+    kw = dict(n_epochs=850, epochs_per_block=w, device=cuda)
+    n_blocks = -(-850 // w)
+    assert n_blocks > lookahead + 1          # drains between launches; wrap
+    lazy = driver.track(cap, s, inits, download=False, **kw)
+    outputs = lazy.outputs.realize()
+    cfg = driver.require_ported(s)
+    cursors0 = np.array([c.code_phase for c in inits], dtype=np.int64)
+    base = np.array([c.acquired_freq for c in inits], dtype=np.float64)
+    want = (cursors0[:, None] + np.cumsum(outputs["blksize"].astype(np.int64),
+                                          axis=1),
+            base[:, None] + outputs["d_cyc"].astype(np.float64) * cfg.fs,
+            s.code_freq_basis + outputs["d_step"].astype(np.float64) * cfg.fs)
+    n_bytes = 850 * len(inits) * len(outputs) * 4
+    rings, answers = [], []
+    for _ in range(2):
+        before = counters()
+        res = driver.track(cap, s, inits, **kw)
+        after = counters()
+        assert after["track.d2h_bytes"] - before["track.d2h_bytes"] \
+            == n_bytes
+        blocks = after["track.blocks"] - before["track.blocks"]
+        hidden = after["track.drains_hidden"] \
+            - before.get("track.drains_hidden", 0)
+        assert blocks == n_blocks and 0 <= hidden <= blocks - 1
+        staging, = driver._STAGING[str(cap.device)]
+        rings.append([b.data_ptr() for b in staging.buffers])
+        assert all(b.is_pinned() for b in staging.buffers)
+        assert res.n_epochs == 850 and sorted(res.outputs) == sorted(outputs)
+        for name, v in outputs.items():
+            got = res.outputs[name]
+            assert got.flags["C_CONTIGUOUS"] and got.dtype == np.float32
+            assert np.array_equal(got.view(np.uint32), v.view(np.uint32)), \
+                name
+        np.testing.assert_array_equal(res.absolute_sample, want[0])
+        for got, ref in zip((res.carr_freq, res.code_freq), want[1:]):
+            assert np.array_equal(got.view(np.uint64), ref.view(np.uint64))
+        answers.append(res)
+    assert rings[0] == rings[1] and len(rings[0]) == lookahead + 1
+    a, b = answers
+    assert not any(np.shares_memory(a.outputs[n], b.outputs[n])
+                   for n in outputs)
 
 
 # --- K1 spread over every SM (exchange through global memory) ---------------

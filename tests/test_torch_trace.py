@@ -3,7 +3,8 @@ CPU: the tracking driver's spans under a CPU profiler, nested in its
 root span, on the resident and the streamed path; acquisition's stages;
 the receiver's upload; the counters of bytes and launches; the off path,
 which calls nothing in torch; and the benchmark's five readers of them
-(portbench/metrics/) on a real profiler trace of a tiny track()."""
+(portbench/metrics/) on a real profiler trace of a tiny track(), and
+the counter readers on counters made by hand."""
 import math
 import time
 from collections import defaultdict
@@ -38,7 +39,8 @@ W = 10                  # epochs a block
 N_EPOCHS = 40
 READERS = ("track.setup_ms_per_signal_s", "track.download_ms_per_signal_s",
            "track.assemble_ms_per_signal_s",
-           "track.blocks_idle_ms_per_signal_s", "track.d2h_MB_per_signal_s")
+           "track.blocks_idle_ms_per_signal_s", "track.d2h_MB_per_signal_s",
+           "track.drain_hidden_share")
 
 
 @pytest.fixture(scope="module")
@@ -78,33 +80,50 @@ def _track(capture, signal=None, **kw):
                         **kw)
 
 
-def test_resident_track_spans_nest_under_track(capture, fresh_counters):
+def test_resident_track_spans_nest_under_track(capture, fresh_counters,
+                                               monkeypatch):
+    """The set-up, then the launch loop, inside the root span; each
+    block's drain (its download, then its assembly), one of each a block,
+    in block order: inside the launch loop for a block with LOOKAHEAD
+    (here 2) blocks launched after it, after the loop for the last
+    LOOKAHEAD blocks."""
+    monkeypatch.setattr(driver, "LOOKAHEAD", 2)
     s, sig, inits = capture
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         res = _track(capture, torch.from_numpy(sig))
     spans = _spans(prof)
     assert len(spans["track"]) == 1
     (r0, r1), = spans["track"]
-    for name in ("track.setup", "track.blocks", "track.download",
-                 "track.assemble"):
+    for name in ("track.setup", "track.blocks"):
         assert len(spans[name]) == 1, name
         (a, b), = spans[name]
         assert r0 <= a <= b <= r1, name
-    order = [spans[n][0][0] for n in ("track.setup", "track.blocks",
-                                      "track.download", "track.assemble")]
-    assert order == sorted(order)
-    assert not spans["k1.launch"]                           # card only
-    assert not spans["track.read"] and not spans["track.upload"]
+    (b0, b1), = spans["track.blocks"]
+    assert spans["track.setup"][0][1] <= b0
     setup = driver.setup_tracking(torch.from_numpy(sig), s, inits, N_EPOCHS,
                                   W)
+    n = setup.n_blocks
+    down, asm = sorted(spans["track.download"]), sorted(spans["track.assemble"])
+    assert len(down) == len(asm) == n >= 3
+    drains = [x for pair in zip(down, asm) for x in pair]
+    looped = 2 * (n - driver.LOOKAHEAD)
+    assert all(b0 <= a <= b <= b1 for a, b in drains[:looped])
+    assert all(b1 <= a <= b <= r1 for a, b in drains[looped:])
+    assert all(p[1] <= q[0] for p, q in zip(drains, drains[1:]))
+    assert not spans["k1.launch"]                           # card only
+    assert not spans["track.read"] and not spans["track.upload"]
     c = trace.counters()
-    assert c["track.blocks"] == setup.n_blocks >= 3
+    assert c["track.blocks"] == n
     assert c["track.requests"] == 1
     assert c["track.signal_ms"] == pytest.approx(res.n_epochs * s.int_time
                                                  * 1e3)
     names = output_names(setup.cfg)
     assert c["track.d2h_bytes"] == res.n_epochs * len(inits) * len(names) \
         * 4
+    assert c["track.drains_hidden"] <= c["track.blocks"]
+    # on the CPU each block is done before the next is launched, so no
+    # drain is hidden behind a later block
+    assert c["track.drains_hidden"] == 0
 
 
 def test_streamed_track_reads_and_uploads_each_block(capture,
@@ -254,10 +273,12 @@ def test_span_off_calls_nothing_in_torch(monkeypatch):
 
 
 def test_readers_on_a_cpu_profile_of_track(capture, fresh_counters):
-    """The benchmark's five new readers on a profile of one tiny track()
-    as the harness takes it: each finds its spans or counters; the
-    setup, download and assembly fit in the request; the counter ratio is
-    the rows' bytes over the seconds of signal."""
+    """The benchmark's six span and counter readers on a profile of one
+    tiny track() as the harness takes it: each finds its spans or
+    counters; the setup, download and assembly fit in the request, and
+    the download and assembly read every block's span; the counter ratio
+    is the rows' bytes over the seconds of signal; no drain is hidden on
+    the CPU."""
     s, sig, inits = capture
     cap = torch.from_numpy(sig)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -276,6 +297,12 @@ def test_readers_on_a_cpu_profile_of_track(capture, fresh_counters):
                for v in got.values()), got
     host_ms = sum(got[n] for n in READERS[:3]) * signal_s
     assert 0 < host_ms <= wall * 1e3
+    n_blocks = trace.counters()["track.blocks"]
+    for name in ("track.download", "track.assemble"):
+        spans = [(a, b) for a, b, n in ctx.trace.host if n == name]
+        assert len(spans) == n_blocks >= 3, name
+        assert got[f"{name}_ms_per_signal_s"] == pytest.approx(
+            1e3 * sum(b - a for a, b in spans) / signal_s, rel=1e-9), name
     n_out = len(output_names(driver.require_ported(s)))
     per_s = res.n_epochs * len(inits) * n_out * 4 / 1e6 / signal_s
     assert got["track.d2h_MB_per_signal_s"] == pytest.approx(per_s,
@@ -284,6 +311,7 @@ def test_readers_on_a_cpu_profile_of_track(capture, fresh_counters):
     (a, b), = [(x, y) for x, y, n in ctx.trace.host if n == "track.blocks"]
     assert got["track.blocks_idle_ms_per_signal_s"] == pytest.approx(
         1e3 * (b - a) / signal_s)
+    assert got["track.drain_hidden_share"] == 0.0
     assert run.read_metrics(ctx, True, {n: readers[n] for n in READERS}) \
         .keys() == set(READERS)
 
@@ -338,6 +366,30 @@ def test_sm_share_reader(monkeypatch, family, counts, want):
                         lambda i: SimpleNamespace(multi_processor_count=132))
     ctx = run.Context(family, 0.0, Window([], 1.0), None, {})
     got = spec.metric_readers()["k1.sm_share"].read(ctx)
+    assert got == (want if want is None else pytest.approx(want, rel=1e-12))
+
+
+@pytest.mark.parametrize("family,counts,want", [
+    # B2a's 244 blocks a request: all but the last hidden
+    ("track", {"track.drains_hidden": 243, "track.blocks": 244},
+     100 * 243 / 244),
+    # B1C's 18
+    ("track", {"track.drains_hidden": 17, "track.blocks": 18}, 100 * 17 / 18),
+    # none hidden (the CPU), or a block launched but not drained
+    ("track", {"track.drains_hidden": 0, "track.blocks": 5}, 0.0),
+    # no block
+    ("track", {"track.drains_hidden": 0, "track.blocks": 0}, None),
+    # a program without the counter
+    ("track", {"track.blocks": 244}, None),
+    ("acquire", {"track.drains_hidden": 3, "track.blocks": 4}, None),
+])
+def test_drain_hidden_share_reader(monkeypatch, family, counts, want):
+    """track.drain_hidden_share: the drains hidden behind a later block
+    over the blocks, from the counters; nothing where there is nothing to
+    read."""
+    monkeypatch.setattr(trace, "counters", lambda: dict(counts))
+    ctx = run.Context(family, 0.0, Window([], 1.0), None, {})
+    got = spec.metric_readers()["track.drain_hidden_share"].read(ctx)
     assert got == (want if want is None else pytest.approx(want, rel=1e-12))
 
 
